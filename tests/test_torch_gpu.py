@@ -1,0 +1,113 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+These tests import neither JAX nor the JAX package, so that they run on a machine
+that has only PyTorch. There, run them without the JAX-side conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Where torch.cuda.is_available() is False they skip.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ttscube_tpu_torch.ops import fused_tail
+
+KS = (3, 7, 11)
+DILS = ((1, 3, 5),) * 3
+
+
+def _case(B, T_in, seed, device, ks=KS, dils=DILS):
+    """z and the tail weights in PyTorch layouts (v1 chains unless given)."""
+    rng = np.random.default_rng(seed)
+    n = lambda scale, *s: torch.from_numpy(
+        (scale * rng.standard_normal(s)).astype(np.float32)).to(device)
+    kernels = [n(0.5 / np.sqrt(k * 32), 32, 32, k)
+               for k, d in zip(ks, dils) for _ in range(2 * len(d))]
+    return (n(1.0, B, T_in, 64), n(0.5 / 8, 64, 32, 4), n(0.1, 32), kernels,
+            [n(0.1, 32) for _ in kernels], n(0.3, 1, 32, 7), n(0.05, 1))
+
+
+@pytest.fixture
+def cuda():
+    """The card, with TF32 off for the fp32 comparisons (restored afterwards)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _distance(a, b):
+    """(max, RMS) of |a − b|, in fp64."""
+    d = (a.double() - b.double()).abs()
+    return d.max().item(), d.square().mean().sqrt().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T_in,bf16,ks,dils", [
+    (1, 301, False, KS, DILS), (2, 64, False, KS, DILS), (2, 301, True, KS, DILS),
+    # the chains of the JAX package's tests/test_pallas_resblock.py tail test
+    (2, 700, False, (3, 7), ((1, 3), (1, 3, 5))), (2, 700, True, (3, 7), ((1, 3), (1, 3, 5))),
+])
+def test_fused_tail_kernel_matches_plain(cuda, B, T_in, bf16, ks, dils):
+    """Ragged lengths (tiles cut at the end, a sequence shorter than one tile). Limits as
+    in chip_smoke.py: 5e-5 in fp32 (TF32 off). With bf16 operands the floor is the plain
+    version's own bf16-vs-fp32 distance: the kernel must sit within half its RMS and
+    within its max of the plain bf16 version, and the kernel in fp32 (the control) must
+    not."""
+    args = _case(B, T_in, seed=T_in, device=cuda, ks=ks, dils=dils)
+    pack = lambda cd: fused_tail.pack_tail_weights(*args[1:], kernel_sizes=ks, dilations=dils,
+                                                   compute_dtype=cd)
+    w32 = pack(None)
+    before = fused_tail.fused_tail_stage.launches
+    got32 = fused_tail.fused_tail_stage(args[0], w32)
+    want32 = fused_tail.fused_tail_stage_plain(args[0], w32)
+    torch.cuda.synchronize()
+    assert fused_tail.fused_tail_stage.launches == before + 1
+    assert got32.shape == want32.shape == (B, 4 * T_in)
+    assert (got32 - want32).abs().max().item() <= 5e-5
+    if bf16:
+        w16 = pack(torch.bfloat16)
+        got16 = fused_tail.fused_tail_stage(args[0], w16)
+        want16 = fused_tail.fused_tail_stage_plain(args[0], w16)
+        floor = _distance(want16, want32)
+        within = lambda d: d[1] <= 0.5 * floor[1] and d[0] <= floor[0]
+        assert floor[0] > 1e-4
+        assert within(_distance(got16, want16)), (_distance(got16, want16), floor)
+        assert not within(_distance(got32, want16))
+
+
+@pytest.mark.gpu
+def test_fused_tail_kernel_refuses_what_it_cannot_run(cuda):
+    """A CUDA tensor the kernel does not take raises; it never falls back."""
+    args = _case(1, 32, seed=0, device=cuda)
+    w = fused_tail.pack_tail_weights(*args[1:], kernel_sizes=KS, dilations=DILS)
+    with pytest.raises(ValueError, match="fp32"):
+        fused_tail.fused_tail_stage(args[0].double(), w)
+    with pytest.raises(ValueError, match="fp32"):
+        fused_tail.fused_tail_stage(args[0][:, ::2], w)
+    with pytest.raises(ValueError, match="device"):
+        fused_tail.fused_tail_stage(args[0], w._replace(wmrf=w.wmrf.cpu()))
+
+
+@pytest.mark.gpu
+def test_serving_generator_matches_module_path_on_the_card(cuda):
+    """The full v1 generator on the card: generator_apply_fused (cuDNN convs and the
+    fused tail kernel, fp32) against Generator.forward (cuDNN convs only), 5e-5."""
+    from ttscube_tpu_torch.convert import init_random
+    from ttscube_tpu_torch.models.hifigan import Generator, HifiganConfig
+    from ttscube_tpu_torch.models.hifigan_fused import generator_apply_fused
+
+    gen = init_random(Generator(HifiganConfig()), 0).to(cuda)
+    mel = torch.from_numpy(
+        np.random.default_rng(2).standard_normal((1, 6, 80)).astype(np.float32)).to(cuda)
+    before = fused_tail.fused_tail_stage.launches
+    with torch.no_grad():
+        got = generator_apply_fused(gen, mel, gen.config)
+        want = gen(mel)
+    assert fused_tail.fused_tail_stage.launches == before + 1
+    assert got.shape == want.shape == (1, 6 * 240)
+    assert (got - want).abs().max().item() <= 5e-5

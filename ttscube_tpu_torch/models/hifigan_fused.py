@@ -1,0 +1,103 @@
+"""Serving forward of the HiFi-GAN generator, counterpart of
+`ttscube_tpu/models/hifigan_fused.py::generator_apply_fused`.
+
+It reads the canonical `Generator` module's parameters. A stage whose width is in
+`fuse_channels`, with a kernel == stride upsample, runs as the fused tail stage
+(`ops/fused_tail.fused_tail_stage`, the kernel on the card) when it is the last stage;
+every other stage is stock PyTorch convs. Between convs the activations are kept in
+`storage_dtype` (bf16 when serving), and the non-fused conv_post and tanh run in fp32,
+as in the JAX function. The JAX function's fused middle stages (`fused_mrf1`) and
+polyphase options are not ported yet; a fusable middle stage runs as plain convs.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ttscube_tpu_torch.models.hifigan import LRELU_SLOPE, Generator, HifiganConfig
+from ttscube_tpu_torch.ops.conv import conv1d, conv_transpose1d
+from ttscube_tpu_torch.ops.fused_tail import fused_tail_stage
+
+
+def _st(x, storage_dtype):
+    """Cast an activation for storage between convs."""
+    return x if storage_dtype is None else x.to(storage_dtype)
+
+
+def _cd(x, w, compute_dtype):
+    """Operands of one conv rounded to the compute dtype and held in fp32, so that the
+    conv accumulates and returns fp32 and its result is rounded once, where it is
+    stored: the JAX function's bf16 operands with `preferred_element_type=fp32`. (A
+    bf16 `F.conv1d` would round its result to bf16 before the bias is added.) On the
+    card cuDNN runs these fp32 convs on TF32 tensor cores by default, which hold bf16
+    values exactly."""
+    if compute_dtype is None:
+        return x.float(), w
+    return x.to(compute_dtype).float(), w.to(compute_dtype).float()
+
+
+def _leaky(x, slope):
+    """`jax.nn.leaky_relu`: the slope takes the activation's dtype (0.1 is
+    0.10009765625 in bf16), and the product is rounded once to that dtype."""
+    return F.leaky_relu(x, float(torch.tensor(slope, dtype=x.dtype)))
+
+
+def _conv(x, conv, compute_dtype, dilation=1, padding=None):
+    """One weight-normalized conv: fp32 result plus fp32 bias."""
+    k = conv.kernel_size
+    pad = dilation * (k - 1) // 2 if padding is None else padding
+    xc, w = _cd(x, conv.weight(), compute_dtype)
+    return conv1d(xc, w, None, 1, pad, dilation) + conv.bias
+
+
+def _upsample(x, up, stride, kernel_size, compute_dtype=None, storage_dtype=None):
+    """leaky → weight-normalized ConvTranspose1d → fp32 bias → storage dtype."""
+    xc, w = _cd(_leaky(x, LRELU_SLOPE), up.weight(), compute_dtype)
+    y = conv_transpose1d(xc, w, None, stride, (kernel_size - stride) // 2) + up.bias
+    return _st(y, storage_dtype)
+
+
+def _plain_resblock1(x, block, compute_dtype=None, storage_dtype=None):
+    convs = block.convs()
+    for m, d in enumerate(block.dilations):
+        h = _leaky(x, LRELU_SLOPE)
+        h = _st(_conv(h, convs[2 * m], compute_dtype, dilation=d), storage_dtype)
+        h = _leaky(h, LRELU_SLOPE)
+        h = _st(_conv(h, convs[2 * m + 1], compute_dtype), storage_dtype)
+        x = x + h
+    return x
+
+
+def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
+                          compute_dtype=None, fuse_channels: tuple = (32,),
+                          storage_dtype=None) -> torch.Tensor:
+    """mel/cond (B, frames, num_mels) → audio (B, frames·total_upsample) fp32.
+
+    Unlike the JAX function, every batch size takes the fused tail: its cut-off at
+    B > 64 (`fuse_max_batch`) was measured on the TPU."""
+    if storage_dtype is not None and compute_dtype is None:
+        compute_dtype = storage_dtype
+    x = _st(_conv(mel, gen.conv_pre, compute_dtype, padding=3), storage_dtype)
+    ch = cfg.upsample_initial_channel
+    n_stages = len(cfg.upsample_rates)
+    n_blocks = len(cfg.resblock_kernel_sizes)
+    for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+        ch //= 2
+        up = getattr(gen, f"up_{i}")
+        blocks = [getattr(gen, f"res_{i}_{j}") for j in range(n_blocks)]
+        if (i == n_stages - 1 and cfg.resblock == "1" and k == u
+                and (u * ch) % 128 == 0 and ch in fuse_channels):
+            # the whole final stage (upsample + MRF + conv_post + tanh) as one kernel
+            audio = fused_tail_stage(x.float().contiguous(), gen.tail_weights(compute_dtype))
+            return audio[:, : mel.shape[1] * cfg.total_upsample]
+        x = _upsample(x, up, u, k, compute_dtype, storage_dtype)
+        acc = None
+        for block in blocks:
+            h = _plain_resblock1(x, block, compute_dtype, storage_dtype)
+            acc = h if acc is None else acc + h
+        x = acc / n_blocks
+    # final act/conv/tanh stay fp32, as in Generator
+    x = F.leaky_relu(x.float(), 0.01)
+    audio = torch.tanh(_conv(x, gen.conv_post, None, padding=3))[..., 0]
+    return audio[:, : mel.shape[1] * cfg.total_upsample]

@@ -1,0 +1,141 @@
+"""Languasito2, counterpart of `ttscube_tpu/models/languasito.py`: the two-tower text
+encoder that predicts durations, pitch and VUV and builds the 80-d frame-level
+conditioning for the generator. LM conditioning (`cond_type` "fasttext"/"hf") is not
+ported yet; the config accepts `cond_type=None` only."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from ttscube_tpu_torch.ops.conv import Conv1d
+from ttscube_tpu_torch.ops.length_regulator import durations_to_frame2phone, regulate_length
+from ttscube_tpu_torch.ops.linear import Dense
+from ttscube_tpu_torch.ops.rnn import LSTM
+
+PHON_EMB_SIZE = 64
+SPEAKER_EMB_SIZE = 128
+CHAR_CNN_SIZE = 256
+CHAR_CNN_KS = 3
+CHAR_CNN_NL = 3
+CHAR_RNN_NL = 2
+CHAR_RNN_SIZE = 256
+DUR_RNN_SIZE = 256
+DUR_RNN_LAYERS = 2
+PITCH_RNN_SIZE = 256
+PITCH_RNN_LAYERS = 2
+COND_RNN_SIZE = 64
+COND_RNN_LAYERS = 2
+COND_SIZE = 80
+
+
+@dataclasses.dataclass(frozen=True)
+class LanguasitoConfig:
+    num_phones: int
+    num_speakers: int
+    max_pitch: float
+    max_duration: int
+    cond_type: Optional[str] = None  # LM conditioning: only None is ported
+
+
+class MaskedEmbed(nn.Module):
+    """Embedding whose rows for id 0 are zeroed by an id mask (JAX `MaskedEmbed`), not by
+    PyTorch's `padding_idx`: the table's row 0 keeps whatever value it holds."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.zeros(num_embeddings, features))
+
+    def init_weights(self, gen: torch.Generator):
+        with torch.no_grad():
+            self.embedding.normal_(0.0, 1.0, generator=gen)
+
+    def forward(self, ids):
+        return self.embedding[ids] * (ids != 0)[..., None]
+
+
+class _Tower(nn.Module):
+    """Phone embedding → char CNN → char BiLSTM, concatenated with the speaker embedding."""
+
+    def __init__(self, c: LanguasitoConfig):
+        super().__init__()
+        if c.cond_type is not None:
+            raise NotImplementedError("LM conditioning is not ported yet")
+        self.phon_emb = MaskedEmbed(c.num_phones + 1, PHON_EMB_SIZE)
+        self.speaker_emb = MaskedEmbed(c.num_speakers + 1, SPEAKER_EMB_SIZE)
+        for i in range(CHAR_CNN_NL):
+            self.add_module(f"char_cnn_{i}", Conv1d(
+                PHON_EMB_SIZE if i == 0 else CHAR_CNN_SIZE, CHAR_CNN_SIZE, CHAR_CNN_KS,
+                w_init_gain="tanh"))
+        self.char_rnn = LSTM(CHAR_CNN_SIZE, CHAR_RNN_SIZE, num_layers=CHAR_RNN_NL,
+                             bidirectional=True)
+
+    def forward(self, x_char, x_speaker):
+        h = self.phon_emb(x_char)
+        for i in range(CHAR_CNN_NL):
+            h = torch.tanh(getattr(self, f"char_cnn_{i}")(h))
+        h, _ = self.char_rnn(h)
+        spk = self.speaker_emb(x_speaker).expand(h.shape[0], h.shape[1], SPEAKER_EMB_SIZE)
+        return torch.cat([h, spk], dim=-1)
+
+
+class Languasito2(nn.Module):
+    """Text tower (`tower_t`: durations, pitch, VUV) and GAN tower (`tower_g`:
+    conditioning). Inputs are dicts of (B, N) int tensors as the collate builds them."""
+
+    def __init__(self, config: LanguasitoConfig):
+        super().__init__()
+        c = self.config = config
+        tower_out = 2 * CHAR_RNN_SIZE + SPEAKER_EMB_SIZE
+        self.tower_t = _Tower(c)
+        self.tower_g = _Tower(c)
+        self.dur_rnn = LSTM(tower_out, DUR_RNN_SIZE, num_layers=DUR_RNN_LAYERS,
+                            bidirectional=True)
+        self.dur_output = Dense(2 * DUR_RNN_SIZE, c.max_duration + 1)
+        self.pitch_rnn = LSTM(tower_out, PITCH_RNN_SIZE, num_layers=PITCH_RNN_LAYERS,
+                              bidirectional=True)
+        self.pitch_output = Dense(2 * PITCH_RNN_SIZE, 2)
+        self.cond_rnn = LSTM(tower_out + 1, COND_RNN_SIZE, num_layers=COND_RNN_LAYERS,
+                             bidirectional=True)
+        self.cond_output = Dense(2 * COND_RNN_SIZE, COND_SIZE)
+
+    def text_forward(self, X, frame2phone):
+        """Phone-level duration logits; frame-level pitch and VUV."""
+        h = self.tower_t(X["x_char"], X["x_speaker"])
+        dur_logits = self.dur_output(self.dur_rnn(h)[0])
+        po = self.pitch_output(self.pitch_rnn(regulate_length(h, frame2phone))[0])
+        return dur_logits, torch.sigmoid(po[:, :, 0]), torch.sigmoid(po[:, :, 1])
+
+    def cond_forward(self, X, frame2phone, pitch):
+        """Frame-level 80-d conditioning."""
+        h = self.tower_g(X["x_char"], X["x_speaker"])
+        hf = regulate_length(h, frame2phone)
+        hf = torch.cat([hf, (pitch / self.config.max_pitch)[:, :, None]], dim=-1)
+        return self.cond_output(self.cond_rnn(hf)[0])
+
+    def _durations(self, X, h_t):
+        return self.dur_output(self.dur_rnn(h_t)[0]).argmax(dim=-1) * (X["x_char"] != 0)
+
+    def durations(self, X):
+        """Predicted per-phone durations (B, N), zero on padded phones."""
+        return self._durations(X, self.tower_t(X["x_char"], X["x_speaker"]))
+
+    def infer(self, X, max_frames: int):
+        """Free synthesis: predict durations, expand, predict pitch (VUV rounded to 0/1,
+        pitch scaled by max_pitch and masked by VUV), build the conditioning."""
+        h_t = self.tower_t(X["x_char"], X["x_speaker"])
+        durs = self._durations(X, h_t)
+        frame2phone, frame_mask = durations_to_frame2phone(
+            durs, (X["x_char"] != 0).sum(dim=-1), max_frames)
+
+        po = self.pitch_output(self.pitch_rnn(regulate_length(h_t, frame2phone))[0])
+        pitch = torch.sigmoid(po[:, :, 0])
+        vuv = torch.round(torch.sigmoid(po[:, :, 1]))
+        pitch = pitch * self.config.max_pitch * vuv
+
+        cond = self.cond_forward(X, frame2phone, pitch)
+        return cond, {"durations": durs, "pitch": pitch, "vuv": vuv,
+                      "frame2phone": frame2phone, "frame_mask": frame_mask}

@@ -1,0 +1,134 @@
+"""1-D convolutions, counterpart of `ttscube_tpu/ops/conv.py`.
+
+Public functions and modules take and return NWC tensors (B, T, C), as the JAX
+package does; inside they transpose to PyTorch's NCW for `F.conv1d`. Parameters are
+stored in PyTorch's layouts (Conv1d (out, in, k), ConvTranspose1d (in, out, k));
+`ttscube_tpu_torch.convert` maps them to and from the JAX trees.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+_GAINS = {"linear": 1.0, "relu": math.sqrt(2.0),
+          "leaky_relu": math.sqrt(2.0 / (1 + 0.01 ** 2)), "tanh": 5.0 / 3,
+          "sigmoid": 1.0}
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
+    """NWC conv: x (B, T, C_in), weight (C_out, C_in/groups, k) → (B, T', C_out)."""
+    y = F.conv1d(x.transpose(1, 2), weight, bias, stride, padding, dilation, groups)
+    return y.transpose(1, 2)
+
+
+def conv_transpose1d(x, weight, bias=None, stride=1, padding=0):
+    """NWC transposed conv, PyTorch semantics: weight (C_in, C_out, k),
+    out_len = (T−1)·stride − 2·padding + k (the JAX `_conv_transpose`)."""
+    y = F.conv_transpose1d(x.transpose(1, 2), weight, bias, stride, padding)
+    return y.transpose(1, 2)
+
+
+def wn_weight(v, g, dim: int = 0):
+    """Weight norm g·v/‖v‖ with the norm over every axis but `dim`, and 1e-12 under
+    the square root as the JAX `_wn_kernel` has it (so not `nn.utils.weight_norm`)."""
+    red = [i for i in range(v.dim()) if i != dim]
+    norm = torch.sqrt(torch.sum(v * v, dim=red, keepdim=True) + 1e-12)
+    shape = [1] * v.dim()
+    shape[dim] = -1
+    return v / norm * g.reshape(shape)
+
+
+def _cast(x, w, compute_dtype):
+    if compute_dtype is None:
+        return x, w
+    return x.to(compute_dtype), w.to(compute_dtype)
+
+
+class Conv1d(nn.Module):
+    """Plain Conv1d with xavier-uniform init scaled by a gain (JAX `Conv1d`)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 1,
+                 stride: int = 1, padding: int | None = None, dilation: int = 1,
+                 groups: int = 1, use_bias: bool = True, w_init_gain: str = "linear"):
+        super().__init__()
+        self.stride, self.dilation, self.groups = stride, dilation, groups
+        self.padding = padding if padding is not None else dilation * (kernel_size - 1) // 2
+        self.gain = _GAINS[w_init_gain]
+        self.kernel = nn.Parameter(torch.zeros(features, in_channels // groups, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def init_weights(self, gen: torch.Generator):
+        fout, fin, k = self.kernel.shape
+        a = self.gain * math.sqrt(6.0 / (k * fin + k * fout))
+        with torch.no_grad():
+            self.kernel.uniform_(-a, a, generator=gen)
+
+    def forward(self, x):
+        return conv1d(x, self.kernel, self.bias, self.stride, self.padding,
+                      self.dilation, self.groups)
+
+
+class WNConv1d(nn.Module):
+    """Weight-normalized Conv1d (per-output-channel norm). `compute_dtype` casts the
+    operands (activation and normalized kernel) for the conv; the result is fp32 and
+    the bias is added in fp32, as the JAX module does."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 1,
+                 stride: int = 1, padding: int | None = None, dilation: int = 1,
+                 groups: int = 1, use_bias: bool = True, compute_dtype=None):
+        super().__init__()
+        self.stride, self.dilation, self.groups = stride, dilation, groups
+        self.kernel_size = kernel_size
+        self.padding = padding if padding is not None else dilation * (kernel_size - 1) // 2
+        self.compute_dtype = compute_dtype
+        self.v = nn.Parameter(torch.zeros(features, in_channels // groups, kernel_size))
+        self.g = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def init_weights(self, gen: torch.Generator):
+        # v ~ N(0, 0.01²) as in JAX, but g = 1 (unit-norm kernel rows) where JAX sets
+        # g = ‖v‖: random weights then keep the activations' scale and give audible
+        # output instead of near-silence
+        with torch.no_grad():
+            self.v.normal_(0.0, 0.01, generator=gen)
+            self.g.fill_(1.0)
+
+    def weight(self):
+        return wn_weight(self.v, self.g, 0)
+
+    def forward(self, x):
+        xc, w = _cast(x, self.weight(), self.compute_dtype)
+        y = conv1d(xc, w, None, self.stride, self.padding, self.dilation,
+                   self.groups).float()
+        return y + self.bias if self.bias is not None else y
+
+
+class WNConvTranspose1d(nn.Module):
+    """Weight-normalized ConvTranspose1d; `g` is per INPUT channel (the norm of PyTorch's
+    (in, out, k) weight over dims 1, 2), as in the JAX module."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int, stride: int,
+                 padding: int = 0, use_bias: bool = True, compute_dtype=None):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.compute_dtype = compute_dtype
+        self.v = nn.Parameter(torch.zeros(in_channels, features, kernel_size))
+        self.g = nn.Parameter(torch.ones(in_channels))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def init_weights(self, gen: torch.Generator):
+        with torch.no_grad():  # as WNConv1d.init_weights
+            self.v.normal_(0.0, 0.01, generator=gen)
+            self.g.fill_(1.0)
+
+    def weight(self):
+        return wn_weight(self.v, self.g, 0)
+
+    def forward(self, x):
+        xc, w = _cast(x, self.weight(), self.compute_dtype)
+        y = conv_transpose1d(xc, w, None, self.stride, self.padding).float()
+        return y + self.bias if self.bias is not None else y
