@@ -16,6 +16,7 @@ from ttscube_tpu_torch.ops import fused_tail
 
 KS = (3, 7, 11)
 DILS = ((1, 3, 5),) * 3
+GRAD_REL_RMS = 5e-3  # chip_smoke.py's limit on B2's grads at the training shape
 
 
 def _case(B, T_in, seed, device, ks=KS, dils=DILS):
@@ -111,3 +112,117 @@ def test_serving_generator_matches_module_path_on_the_card(cuda):
     assert fused_tail.fused_tail_stage.launches == before + 1
     assert got.shape == want.shape == (1, 6 * 240)
     assert (got - want).abs().max().item() <= 5e-5
+
+
+def _grad_leaves(args):
+    """z and every weight of `_case`'s stage as leaves that take grads."""
+    z, up, ub, kernels, biases, pk, pb = args
+    return [t.detach().clone().requires_grad_() for t in (z, up, ub, pk, pb, *kernels, *biases)]
+
+
+def _plain_vjp(leaves, dy, ks, dils):
+    """Autograd through the plain version: the grads kernel B2 must give."""
+    z, up, ub, pk, pb, *kb = leaves
+    n = len(kb) // 2
+    w = fused_tail.pack_tail_weights(up, ub, kb[:n], kb[n:], pk, pb, kernel_sizes=ks,
+                                     dilations=dils)
+    return torch.autograd.grad(fused_tail.fused_tail_stage_plain(z, w), leaves, dy)
+
+
+def _exact_vjp(leaves, dy, ks, dils):
+    """The plain version's VJP in fp64: the exact grads of the same function."""
+    z, up, ub, pk, pb, *kb = [t.detach().double().requires_grad_() for t in leaves]
+    n = len(kb) // 2
+    w = fused_tail.pack_tail_weights(up, ub, kb[:n], kb[n:], pk, pb, kernel_sizes=ks,
+                                     dilations=dils, dtype=torch.float64)
+    leaves64 = [z, up, ub, pk, pb, *kb]
+    return torch.autograd.grad(fused_tail.fused_tail_stage_plain(z, w), leaves64, dy.double())
+
+
+def _kernel_vjp(leaves, dy, ks, dils):
+    """The same grads through FusedTailStageGrad: forward B1, backward B2."""
+    z, up, ub, pk, pb, *kb = leaves
+    n = len(kb) // 2
+    out = fused_tail.fused_tail_stage_train(z, up, ub, kb[:n], kb[n:], pk, pb,
+                                            kernel_sizes=ks, dilations=dils)
+    return torch.autograd.grad(out, leaves, dy)
+
+
+def _within(a, b, tol=2e-4):
+    return bool(((a.double() - b.double()).abs() <= tol + tol * b.double().abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T_in,ks,dils,blocks", [
+    (2, 701, KS, DILS, None),            # ragged: the last tile is cut
+    (2, 300, (3, 7), ((1, 3), (1, 3, 5)), None),  # the chains of the JAX package's grad test
+    (2, 701, KS, DILS, 3),  # 22 tiles on 3 blocks: partials and workspace carry across tiles
+])
+def test_fused_tail_grad_kernel_matches_plain_vjp(cuda, monkeypatch, B, T_in, ks, dils,
+                                                  blocks):
+    """B2 against autograd of the plain version, fp32 (TF32 off), every grad at
+    rtol = atol = 2e-4 (the JAX package's grad tests' tolerance); two launches on the
+    same input give bit-equal grads; the counters rise by one launch each. With
+    `blocks`, B2 runs on that many thread blocks, so that each walks several tiles."""
+    if blocks is not None:
+        monkeypatch.setattr(fused_tail, "GRAD_BLOCKS", blocks)
+    args = _case(B, T_in, seed=T_in, device=cuda, ks=ks, dils=dils)
+    leaves = _grad_leaves(args)
+    dy = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (B, 4 * T_in)).astype(np.float32)).to(cuda)
+    want = _plain_vjp(leaves, dy, ks, dils)
+    before = (fused_tail.fused_tail_stage.launches, fused_tail.fused_tail_stage_grad.launches)
+    got = _kernel_vjp(leaves, dy, ks, dils)
+    again = _kernel_vjp(leaves, dy, ks, dils)
+    torch.cuda.synchronize()
+    assert (fused_tail.fused_tail_stage.launches, fused_tail.fused_tail_stage_grad.launches) \
+        == (before[0] + 2, before[1] + 2)
+    for i, (g, w_) in enumerate(zip(got, want)):
+        assert g.shape == w_.shape, i
+        torch.testing.assert_close(g, w_, rtol=2e-4, atol=2e-4, msg=f"grad {i}")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_fused_tail_grad_kernel_refuses_what_it_cannot_run(cuda):
+    args = _case(1, 32, seed=0, device=cuda)
+    w = fused_tail.pack_tail_weights(*args[1:], kernel_sizes=KS, dilations=DILS)
+    dy = torch.zeros(1, 128, device=cuda)
+    with pytest.raises(ValueError, match="dy"):
+        fused_tail.fused_tail_stage_grad(args[0], w, dy[:, :64])
+    with pytest.raises(ValueError, match="fp32"):
+        fused_tail.fused_tail_stage_grad(
+            args[0], fused_tail.pack_tail_weights(*args[1:], kernel_sizes=KS,
+                                                  dilations=DILS,
+                                                  compute_dtype=torch.bfloat16), dy)
+
+
+@pytest.mark.gpu
+def test_fused_tail_grad_kernel_at_the_training_shape(cuda):
+    """B = 16 windows of 12,000 samples. Here no fp32 VJP of the stage, the plain one
+    included, meets rtol = atol = 2e-4 against the exact (fp64) VJP: where an activation
+    lies within fp32 noise of a leaky kink, the fp32 forward takes the other slope there
+    and the grads of every conv upstream of it move. So each grad is held to the exact
+    VJP within GRAD_REL_RMS in relative RMS (chip_smoke.py's limit, set from several
+    seeds there): the kernel and the plain fp32 version (the witness) must meet it, the
+    plain version under TF32 (the control) must not. Two launches give bit-equal grads."""
+    B, T_in = 16, 3000
+    args = _case(B, T_in, seed=T_in, device=cuda)
+    leaves = _grad_leaves(args)
+    dy = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (B, 4 * T_in)).astype(np.float32)).to(cuda)
+    got = _kernel_vjp(leaves, dy, KS, DILS)
+    again = _kernel_vjp(leaves, dy, KS, DILS)
+    plain = _plain_vjp(leaves, dy, KS, DILS)
+    exact = _exact_vjp(leaves, dy, KS, DILS)
+    torch.backends.cudnn.allow_tf32 = True
+    control = _plain_vjp(leaves, dy, KS, DILS)
+    torch.backends.cudnn.allow_tf32 = False
+
+    def worst_rel_rms(gs):
+        return max(float((a.double() - e).norm() / e.norm()) for a, e in zip(gs, exact))
+
+    assert worst_rel_rms(got) <= GRAD_REL_RMS
+    assert worst_rel_rms(plain) <= GRAD_REL_RMS
+    assert worst_rel_rms(control) > GRAD_REL_RMS
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -4,7 +4,9 @@ A JAX tree is a nested dict of numpy arrays, as flax keeps it ({"lang": ..., "ge
 ...} for Cubegan). The port's modules are named as the tree is, so the walk below
 pairs each leaf module with its subtree and applies the layout rules:
 
-  * Conv1d kernel, WNConv1d v: (k, in, out) ↔ (out, in, k)
+  * Conv1d kernel, SNConv1d kernel, WNConv1d v: (k, in, out) ↔ (out, in, k)
+  * WNConv2d v: (kh, kw, in, out) ↔ (out, in, kh, kw)
+  * SNConv1d u: the JAX "spectral" collection ↔ the module's buffer `u`
   * WNConvTranspose1d v: (k, out, in) ↔ (in, out, k); its g is per input channel
   * Dense kernel: (in, out) ↔ Linear weight (out, in)
   * LSTM: wi/wh (D, 4H) ↔ weight_ih/weight_hh (4H, D); the single bias b goes to
@@ -22,19 +24,24 @@ import torch
 import torch.nn as nn
 
 from ttscube_tpu_torch.models.languasito import MaskedEmbed
-from ttscube_tpu_torch.ops.conv import Conv1d, WNConv1d, WNConvTranspose1d
+from ttscube_tpu_torch.ops.conv import (Conv1d, SNConv1d, WNConv1d, WNConv2d,
+                                        WNConvTranspose1d)
 from ttscube_tpu_torch.ops.linear import Dense, Embed
 from ttscube_tpu_torch.ops.rnn import LSTM
 
 _T3 = (2, 1, 0)  # (k, a, b) ↔ (b, a, k)
+_T4 = (3, 2, 0, 1)  # (kh, kw, in, out) → (out, in, kh, kw)
+_T4_BACK = (2, 3, 1, 0)
 
 
 def _leaf_to_torch(mod: nn.Module, p: dict) -> dict:
     a = lambda x: torch.from_numpy(np.array(x, dtype=np.float32))
-    if isinstance(mod, Conv1d):
+    if isinstance(mod, (Conv1d, SNConv1d)):
         out = {"kernel": a(np.transpose(p["kernel"], _T3))}
     elif isinstance(mod, (WNConv1d, WNConvTranspose1d)):
         out = {"v": a(np.transpose(p["v"], _T3)), "g": a(p["g"])}
+    elif isinstance(mod, WNConv2d):
+        out = {"v": a(np.transpose(p["v"], _T4)), "g": a(p["g"])}
     elif isinstance(mod, Dense):
         out = {"weight": a(np.asarray(p["kernel"]).T)}
     elif isinstance(mod, Embed):
@@ -59,10 +66,12 @@ def _leaf_to_torch(mod: nn.Module, p: dict) -> dict:
 
 def _leaf_to_jax(mod: nn.Module, sd: dict) -> dict:
     n = lambda name: sd[name].detach().cpu().float().numpy()
-    if isinstance(mod, Conv1d):
+    if isinstance(mod, (Conv1d, SNConv1d)):
         out = {"kernel": np.ascontiguousarray(np.transpose(n("kernel"), _T3))}
     elif isinstance(mod, (WNConv1d, WNConvTranspose1d)):
         out = {"v": np.ascontiguousarray(np.transpose(n("v"), _T3)), "g": n("g")}
+    elif isinstance(mod, WNConv2d):
+        out = {"v": np.ascontiguousarray(np.transpose(n("v"), _T4_BACK)), "g": n("g")}
     elif isinstance(mod, Dense):
         out = {"kernel": np.ascontiguousarray(n("weight").T)}
     elif isinstance(mod, Embed):
@@ -85,21 +94,29 @@ def _leaf_to_jax(mod: nn.Module, sd: dict) -> dict:
     return out
 
 
-_LEAVES = (Conv1d, WNConv1d, WNConvTranspose1d, Dense, Embed, MaskedEmbed, LSTM)
+_LEAVES = (Conv1d, SNConv1d, WNConv1d, WNConv2d, WNConvTranspose1d, Dense, Embed,
+           MaskedEmbed, LSTM)
 
 
-def jax_to_state_dict(module: nn.Module, tree: dict) -> dict:
-    """The state dict of `module` holding the JAX parameter tree `tree`."""
+def jax_to_state_dict(module: nn.Module, tree: dict, spectral: dict | None = None) -> dict:
+    """The state dict of `module` holding the JAX parameter tree `tree` and, for its
+    spectral-normalized convs, the `u` vectors of the JAX "spectral" tree `spectral`
+    (laid out as `tree`; without it each keeps the `u` it holds)."""
     out = {}
 
-    def walk(mod, sub, prefix):
+    def walk(mod, sub, spec, prefix):
         if isinstance(mod, _LEAVES):
             out.update({prefix + k: v for k, v in _leaf_to_torch(mod, sub).items()})
+            if isinstance(mod, SNConv1d):
+                u = mod.u.detach().cpu() if spec is None else \
+                    torch.from_numpy(np.array(spec["u"], dtype=np.float32))
+                out[prefix + "u"] = u
             return
         for name, child in mod.named_children():
-            walk(child, sub[name], prefix + name + ".")
+            walk(child, sub[name], None if spec is None else spec.get(name),
+                 prefix + name + ".")
 
-    walk(module, tree, "")
+    walk(module, tree, spectral, "")
     return out
 
 
@@ -118,9 +135,23 @@ def state_dict_to_jax(module: nn.Module, state_dict: dict | None = None) -> dict
     return walk(module, "")
 
 
-def load_jax_params(module: nn.Module, tree: dict) -> nn.Module:
-    """Copy a JAX parameter tree onto `module` (strict: every weight must be there)."""
-    module.load_state_dict(jax_to_state_dict(module, tree), strict=True)
+def spectral_to_jax(module: nn.Module) -> dict:
+    """The JAX "spectral" tree of `module`: the `u` of each spectral-normalized conv,
+    nested as the parameters are, subtrees without one left out."""
+
+    def walk(mod):
+        if isinstance(mod, SNConv1d):
+            return {"u": mod.u.detach().cpu().float().numpy()}
+        sub = {name: walk(child) for name, child in mod.named_children()}
+        return {k: v for k, v in sub.items() if v}
+
+    return walk(module)
+
+
+def load_jax_params(module: nn.Module, tree: dict, spectral: dict | None = None) -> nn.Module:
+    """Copy a JAX parameter tree (and spectral tree) onto `module` (strict: every
+    weight must be there)."""
+    module.load_state_dict(jax_to_state_dict(module, tree, spectral), strict=True)
     return module
 
 

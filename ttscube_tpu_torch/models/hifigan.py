@@ -1,18 +1,21 @@
-"""HiFi-GAN v1 generator, counterpart of `ttscube_tpu/models/hifigan.py`
-(`HifiganConfig`, `ResBlock1`, `Generator`). The discriminators wait for the training
-slice. `Generator.forward` is the plain module path (the JAX `Generator.apply`); the
-serving path with the fused tail stage is `models/hifigan_fused.generator_apply_fused`.
+"""HiFi-GAN v1, counterpart of `ttscube_tpu/models/hifigan.py`: `HifiganConfig`,
+`ResBlock1`, `Generator`, the discriminators (`DiscriminatorP`, `DiscriminatorS`,
+`MultiPeriodDiscriminator`, `MultiScaleDiscriminator`) and the GAN losses.
+`Generator.forward` is the plain module path (the JAX `Generator.apply`); the serving
+path with the fused tail stage is `models/hifigan_fused.generator_apply_fused`, the
+training path `models/hifigan_fused.generator_apply_fused_train`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ttscube_tpu_torch.ops.conv import WNConv1d, WNConvTranspose1d
+from ttscube_tpu_torch.ops.conv import SNConv1d, WNConv1d, WNConv2d, WNConvTranspose1d
 from ttscube_tpu_torch.ops.fused_tail import TailWeights, pack_tail_weights
 
 LRELU_SLOPE = 0.1
@@ -36,6 +39,10 @@ class HifiganConfig:
     storage_dtype: str = "float32"
     fused_tail: bool = False
     fuse_channels: tuple = (32,)
+    # training: the last stage through the fused tail kernels (forward B1, backward B2),
+    # fp32, at every batch size: B2's blocks walk the tiles of all B windows, so it has
+    # no batch limit (the JAX package's fused_train_max_batch was set on the TPU)
+    fused_tail_train: bool = False
 
     @property
     def torch_compute_dtype(self):
@@ -133,3 +140,139 @@ class Generator(nn.Module):
         audio = torch.tanh(self.conv_post(x))[..., 0]
         # v1 upsampling yields a few samples more than frames·240; trim once here
         return audio[:, : mel.shape[1] * c.total_upsample]
+
+
+class DiscriminatorP(nn.Module):
+    """Period discriminator: reflect-pad (B, T) to a multiple of the period, fold it to
+    (B, 1, T/p, p) and run strided 2-D convs (NCHW; the JAX module runs NHWC). Returns
+    the scores (B, ·) and the feature maps (NCHW)."""
+
+    def __init__(self, period: int, channels: tuple = (32, 128, 512, 1024)):
+        super().__init__()
+        self.period = period
+        in_ch = 1
+        for i, ch in enumerate(channels):
+            self.add_module(f"conv_{i}", WNConv2d(in_ch, ch, (5, 1), (3, 1), (2, 0)))
+            in_ch = ch
+        self.add_module(f"conv_{len(channels)}", WNConv2d(in_ch, in_ch, (5, 1), (1, 1), (2, 0)))
+        self.conv_post = WNConv2d(in_ch, 1, (3, 1), (1, 1), (1, 0))
+        self.n_convs = len(channels) + 1
+
+    def forward(self, x):
+        p = self.period
+        B, T = x.shape
+        if T % p:
+            x = F.pad(x[:, None], (0, p - T % p), mode="reflect")[:, 0]
+        h = x.reshape(B, 1, -1, p)
+        fmap = []
+        for i in range(self.n_convs):
+            h = F.leaky_relu(getattr(self, f"conv_{i}")(h), LRELU_SLOPE)
+            fmap.append(h)
+        h = self.conv_post(h)
+        fmap.append(h)
+        return h.reshape(B, -1), fmap
+
+
+class DiscriminatorS(nn.Module):
+    """Scale discriminator: grouped 1-D convs over (B, T, 1) (NWC), spectral-normalized
+    for scale 0, weight-normalized otherwise. Groups are clamped to divide the channels,
+    as in the JAX module, so that narrow test widths work."""
+
+    def __init__(self, use_spectral_norm: bool = False, width: int = 128):
+        super().__init__()
+        w = width
+        layers = [
+            dict(features=w, kernel_size=15, stride=1, padding=7, groups=1),
+            dict(features=w, kernel_size=41, stride=2, padding=20, groups=4),
+            dict(features=2 * w, kernel_size=41, stride=2, padding=20, groups=16),
+            dict(features=4 * w, kernel_size=41, stride=4, padding=20, groups=16),
+            dict(features=8 * w, kernel_size=41, stride=4, padding=20, groups=16),
+            dict(features=8 * w, kernel_size=41, stride=1, padding=20, groups=16),
+            dict(features=8 * w, kernel_size=5, stride=1, padding=2, groups=1),
+        ]
+        conv = SNConv1d if use_spectral_norm else WNConv1d
+        self.spectral = use_spectral_norm
+        in_ch = 1
+        for i, kw in enumerate(layers):
+            kw["groups"] = math.gcd(kw["groups"], math.gcd(in_ch, kw["features"]))
+            self.add_module(f"conv_{i}", conv(in_ch, **kw))
+            in_ch = kw["features"]
+        self.conv_post = conv(in_ch, 1, kernel_size=3, padding=1)
+        self.n_convs = len(layers)
+
+    def forward(self, x, update_stats: bool = False):
+        kw = {"update_stats": update_stats} if self.spectral else {}
+        h = x[:, :, None]
+        fmap = []
+        for i in range(self.n_convs):
+            h = F.leaky_relu(getattr(self, f"conv_{i}")(h, **kw), LRELU_SLOPE)
+            fmap.append(h)
+        h = self.conv_post(h, **kw)
+        fmap.append(h)
+        return h.reshape(h.shape[0], -1), fmap
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    def __init__(self, periods: tuple = (2, 3, 5, 7, 11),
+                 channels: tuple = (32, 128, 512, 1024)):
+        super().__init__()
+        self.periods = tuple(periods)
+        for p in self.periods:
+            self.add_module(f"p{p}", DiscriminatorP(p, channels))
+
+    def forward(self, y, y_hat):
+        rs, gs, fmap_rs, fmap_gs = [], [], [], []
+        for p in self.periods:
+            d = getattr(self, f"p{p}")
+            r, fr = d(y)
+            g, fg = d(y_hat)
+            rs.append(r); gs.append(g); fmap_rs.append(fr); fmap_gs.append(fg)
+        return rs, gs, fmap_rs, fmap_gs
+
+
+def avgpool42(x):
+    """AvgPool1d(4, stride=2, padding=2) over (B, T), the padding counted."""
+    return F.avg_pool1d(x[:, None], 4, 2, padding=2, count_include_pad=True)[:, 0]
+
+
+class MultiScaleDiscriminator(nn.Module):
+    def __init__(self, width: int = 128):
+        super().__init__()
+        for i in range(3):
+            self.add_module(f"s{i}", DiscriminatorS(use_spectral_norm=(i == 0), width=width))
+
+    def forward(self, y, y_hat, update_stats: bool = False):
+        """Scale 0 scores y with `update_stats` (the spectral u may be written) and
+        then y_hat without, reading the u that the first call left: the order of the
+        JAX module inside one `apply`."""
+        rs, gs, fmap_rs, fmap_gs = [], [], [], []
+        for i in range(3):
+            d = getattr(self, f"s{i}")
+            r, fr = d(y, update_stats=update_stats) if i == 0 else d(y)
+            g, fg = d(y_hat)
+            rs.append(r); gs.append(g); fmap_rs.append(fr); fmap_gs.append(fg)
+            y = avgpool42(y)
+            y_hat = avgpool42(y_hat)
+        return rs, gs, fmap_rs, fmap_gs
+
+
+def feature_loss(fmap_r, fmap_g):
+    loss = 0.0
+    for dr, dg in zip(fmap_r, fmap_g):
+        for r, g in zip(dr, dg):
+            loss = loss + torch.mean(torch.abs(r - g))
+    return loss * 2.0
+
+
+def discriminator_loss(disc_real, disc_generated):
+    loss = 0.0
+    for dr, dg in zip(disc_real, disc_generated):
+        loss = loss + torch.mean((1.0 - dr) ** 2) + torch.mean(dg ** 2)
+    return loss
+
+
+def generator_loss(disc_generated):
+    loss = 0.0
+    for dg in disc_generated:
+        loss = loss + torch.mean((1.0 - dg) ** 2)
+    return loss

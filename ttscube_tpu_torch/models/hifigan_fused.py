@@ -1,5 +1,6 @@
-"""Serving forward of the HiFi-GAN generator, counterpart of
-`ttscube_tpu/models/hifigan_fused.py::generator_apply_fused`.
+"""Serving and training forwards of the HiFi-GAN generator, counterpart of
+`ttscube_tpu/models/hifigan_fused.py::generator_apply_fused` and
+`generator_apply_fused_train`.
 
 It reads the canonical `Generator` module's parameters. A stage whose width is in
 `fuse_channels`, with a kernel == stride upsample, runs as the fused tail stage
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 
 from ttscube_tpu_torch.models.hifigan import LRELU_SLOPE, Generator, HifiganConfig
 from ttscube_tpu_torch.ops.conv import conv1d, conv_transpose1d
-from ttscube_tpu_torch.ops.fused_tail import fused_tail_stage
+from ttscube_tpu_torch.ops.fused_tail import fused_tail_stage, fused_tail_stage_train
 
 
 def _st(x, storage_dtype):
@@ -99,5 +100,42 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
         x = acc / n_blocks
     # final act/conv/tanh stay fp32, as in Generator
     x = F.leaky_relu(x.float(), 0.01)
+    audio = torch.tanh(_conv(x, gen.conv_post, None, padding=3))[..., 0]
+    return audio[:, : mel.shape[1] * cfg.total_upsample]
+
+
+def generator_apply_fused_train(gen: Generator, mel: torch.Tensor,
+                                cfg: HifiganConfig) -> torch.Tensor:
+    """Differentiable generator forward for training, fp32: mel/cond (B, frames,
+    num_mels) → audio (B, frames·total_upsample).
+
+    conv_pre and every stage but the last run as convs under autograd; the last stage,
+    when it is the v1 tail (C = 32, kernel == stride == 4), runs through
+    `FusedTailStageGrad`: forward kernel B1, backward kernel B2. Its weights are the
+    weight-normed tensors with their graph, so autograd pulls the grads on back to
+    each v and g (not `Generator.tail_weights`, which packs once, detached, for
+    serving)."""
+    x = _conv(mel, gen.conv_pre, None, padding=3)
+    ch = cfg.upsample_initial_channel
+    n_stages = len(cfg.upsample_rates)
+    n_blocks = len(cfg.resblock_kernel_sizes)
+    for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+        ch //= 2
+        up = getattr(gen, f"up_{i}")
+        blocks = [getattr(gen, f"res_{i}_{j}") for j in range(n_blocks)]
+        if i == n_stages - 1 and cfg.resblock == "1" and k == u == 4 and ch == 32:
+            convs = [cv for block in blocks for cv in block.convs()]
+            audio = fused_tail_stage_train(
+                x.contiguous(), up.weight(), up.bias, [cv.weight() for cv in convs],
+                [cv.bias for cv in convs], gen.conv_post.weight(), gen.conv_post.bias,
+                kernel_sizes=cfg.resblock_kernel_sizes, dilations=cfg.resblock_dilation_sizes)
+            return audio[:, : mel.shape[1] * cfg.total_upsample]
+        x = _upsample(x, up, u, k)
+        acc = None
+        for block in blocks:
+            h = _plain_resblock1(x, block)
+            acc = h if acc is None else acc + h
+        x = acc / n_blocks
+    x = F.leaky_relu(x, 0.01)
     audio = torch.tanh(_conv(x, gen.conv_post, None, padding=3))[..., 0]
     return audio[:, : mel.shape[1] * cfg.total_upsample]

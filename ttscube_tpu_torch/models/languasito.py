@@ -116,6 +116,13 @@ class Languasito2(nn.Module):
         hf = torch.cat([hf, (pitch / self.config.max_pitch)[:, :, None]], dim=-1)
         return self.cond_output(self.cond_rnn(hf)[0])
 
+    def forward(self, X):
+        """Teacher-forced pass (training): the batch's own frame→phone map and pitch.
+        Returns (dur_logits, pitch, vuv, cond)."""
+        dur_logits, pitch, vuv = self.text_forward(X, X["y_frame2phone"])
+        cond = self.cond_forward(X, X["y_frame2phone"], X["y_pitch"])
+        return dur_logits, pitch, vuv, cond
+
     def _durations(self, X, h_t):
         return self.dur_output(self.dur_rnn(h_t)[0]).argmax(dim=-1) * (X["x_char"] != 0)
 
@@ -139,3 +146,31 @@ class Languasito2(nn.Module):
         cond = self.cond_forward(X, frame2phone, pitch)
         return cond, {"durations": durs, "pitch": pitch, "vuv": vuv,
                       "frame2phone": frame2phone, "frame_mask": frame_mask}
+
+
+def languasito_losses(dur_logits, pitch, vuv, batch, max_pitch: float):
+    """Duration cross-entropy over real phones + VUV-weighted pitch L1 + VUV L1.
+
+    As in the JAX function, the pitch and VUV means run over the valid frames
+    (`y_frame_mask`), not over the padded batch; a batch without a frame mask takes
+    plain means. Returns (loss_duration, loss_pitch)."""
+    t_dur = batch["y_dur"].long()
+    dur_mask = (batch["x_char"] != 0).float()
+    logp = torch.log_softmax(dur_logits, dim=-1)
+    t_dur_safe = t_dur.clamp(0, dur_logits.shape[-1] - 1)
+    nll = -torch.gather(logp, -1, t_dur_safe[..., None])[..., 0]
+    loss_duration = (nll * dur_mask).sum() / dur_mask.sum().clamp(min=1)
+
+    t_pitch = batch["y_pitch"]
+    t_vuv = (t_pitch > 1).float()
+    F = min(t_pitch.shape[1], pitch.shape[1])
+    pitch_l1 = torch.abs(t_pitch[:, :F] / max_pitch - pitch[:, :F]) * t_vuv[:, :F]
+    vuv_l1 = torch.abs(t_vuv[:, :F] - vuv[:, :F])
+    fmask = batch.get("y_frame_mask")
+    if fmask is None:
+        loss_pitch = pitch_l1.mean() + vuv_l1.mean()
+    else:
+        m = fmask[:, :F].float()
+        denom = m.sum().clamp(min=1.0)
+        loss_pitch = (pitch_l1 * m).sum() / denom + (vuv_l1 * m).sum() / denom
+    return loss_duration, loss_pitch

@@ -43,18 +43,28 @@ def _target(name: str) -> Path:
     return BUILD_ROOT / f"{name}-{key}" / f"lib{name}.so"
 
 
-def _build(name: str, target: Path) -> None:
-    target.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    log = target.parent / "nvcc.log"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    with open(log, "w") as f:
-        rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT).returncode
-    if rc != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log.read_text()}")
-    os.replace(tmp, target)  # atomic: a concurrent loader sees no half-written library
+def _build(names: list) -> None:
+    """One nvcc for each source, all started together, then waited for."""
+    jobs = []
+    for name in names:
+        target = _target(name)
+        target.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
+        os.close(fd)
+        log = target.parent / "nvcc.log"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        with open(log, "w") as f:
+            jobs.append((name, target, tmp, log,
+                         subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, target, tmp, log, proc in jobs:
+        if proc.wait() != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for {name}.cu:\n{log.read_text()}")
+        else:
+            os.replace(tmp, target)  # atomic: a concurrent loader sees no half-written library
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def nvcc_log(name: str) -> str:
@@ -63,13 +73,19 @@ def nvcc_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def load_all(names) -> list:
+    """The loaded libraries for `csrc/<name>.cu` of each name, those not built yet
+    built first, in parallel."""
+    with _lock:
+        missing = [n for n in names if n not in _libs and not _target(n).exists()]
+        if missing:
+            _build(missing)
+        for n in names:
+            if n not in _libs:
+                _libs[n] = ctypes.CDLL(str(_target(n)))
+        return [_libs[n] for n in names]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built first if needed."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            target = _target(name)
-            if not target.exists():
-                _build(name, target)
-            lib = _libs[name] = ctypes.CDLL(str(target))
-        return lib
+    return load_all([name])[0]

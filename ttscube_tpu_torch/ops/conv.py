@@ -1,7 +1,8 @@
-"""1-D convolutions, counterpart of `ttscube_tpu/ops/conv.py`.
+"""Convolutions, counterpart of `ttscube_tpu/ops/conv.py`.
 
-Public functions and modules take and return NWC tensors (B, T, C), as the JAX
-package does; inside they transpose to PyTorch's NCW for `F.conv1d`. Parameters are
+Public 1-D functions and modules take and return NWC tensors (B, T, C), as the JAX
+package does; inside they transpose to PyTorch's NCW for `F.conv1d`. The one 2-D
+module, `WNConv2d`, runs PyTorch's NCHW (the JAX module NHWC). Parameters are
 stored in PyTorch's layouts (Conv1d (out, in, k), ConvTranspose1d (in, out, k));
 `ttscube_tpu_torch.convert` maps them to and from the JAX trees.
 """
@@ -132,3 +133,74 @@ class WNConvTranspose1d(nn.Module):
         xc, w = _cast(x, self.weight(), self.compute_dtype)
         y = conv_transpose1d(xc, w, None, self.stride, self.padding).float()
         return y + self.bias if self.bias is not None else y
+
+
+class WNConv2d(nn.Module):
+    """Weight-normalized Conv2d (per-output-channel norm), counterpart of the JAX
+    `WNConv2d` (the period discriminators'). The JAX module runs NHWC with an HWIO
+    kernel (kh, kw, in, out); the port runs NCHW with PyTorch's (out, in, kh, kw), and
+    `ttscube_tpu_torch.convert` transposes between them."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: tuple,
+                 strides: tuple = (1, 1), padding: tuple = (0, 0), use_bias: bool = True):
+        super().__init__()
+        self.strides, self.padding = tuple(strides), tuple(padding)
+        self.v = nn.Parameter(torch.zeros(features, in_channels, *kernel_size))
+        self.g = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def init_weights(self, gen: torch.Generator):
+        with torch.no_grad():  # as WNConv1d.init_weights
+            self.v.normal_(0.0, 0.01, generator=gen)
+            self.g.fill_(1.0)
+
+    def weight(self):
+        return wn_weight(self.v, self.g, 0)
+
+    def forward(self, x):
+        """x (B, C_in, H, W) → (B, features, H', W')."""
+        return F.conv2d(x, self.weight(), self.bias, self.strides, self.padding)
+
+
+class SNConv1d(nn.Module):
+    """Spectral-normalized Conv1d, counterpart of the JAX `SNConv1d`: one power
+    iteration in every call, from the stored `u`, with σ = u'ᵀ W v' taken through W
+    only (u' and v' held constant); the new u' is stored only under
+    `update_stats=True`. Not `torch.nn.utils.spectral_norm`, which iterates in training
+    mode only and then always stores. `u` is a buffer (the JAX "spectral" collection);
+    `ttscube_tpu_torch.convert` carries it across, never re-seeded."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 1,
+                 stride: int = 1, padding: int | None = None, groups: int = 1,
+                 use_bias: bool = True):
+        super().__init__()
+        self.stride, self.groups = stride, groups
+        self.padding = padding if padding is not None else (kernel_size - 1) // 2
+        self.kernel = nn.Parameter(torch.zeros(features, in_channels // groups, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.register_buffer("u", torch.zeros(features))
+
+    def init_weights(self, gen: torch.Generator):
+        # JAX: kernel ~ U(±1/√(fan-in)), u ~ N(0, 1) (from its own key, not this one)
+        fout, fin, k = self.kernel.shape
+        scale = 1.0 / math.sqrt(fin * k)
+        with torch.no_grad():
+            self.kernel.uniform_(-scale, scale, generator=gen)
+            self.u.normal_(0.0, 1.0, generator=gen)
+
+    def weight(self, update_stats: bool = False):
+        wmat = self.kernel.reshape(self.kernel.shape[0], -1)
+        with torch.no_grad():
+            v = wmat.t() @ self.u
+            v = v / (torch.linalg.vector_norm(v) + 1e-12)
+            u_new = wmat @ v
+            u_new = u_new / (torch.linalg.vector_norm(u_new) + 1e-12)
+            if update_stats:
+                self.u.copy_(u_new)
+        sigma = torch.dot(u_new, wmat @ v)
+        return self.kernel / sigma
+
+    def forward(self, x, update_stats: bool = False):
+        """x (B, T, C_in) → (B, T', features)."""
+        return conv1d(x, self.weight(update_stats), self.bias, self.stride, self.padding,
+                      1, self.groups)

@@ -59,8 +59,11 @@ def _rounder(compute_dtype):
 
 
 def pack_tail_weights(up_kernel, up_bias, kernels, biases, post_kernel, post_bias, *,
-                      kernel_sizes, dilations, compute_dtype=None) -> TailWeights:
-    """Check the stage's weights against the kernel's limits and pack them.
+                      kernel_sizes, dilations, compute_dtype=None,
+                      dtype=torch.float32) -> TailWeights:
+    """Check the stage's weights against the kernel's limits and pack them, in `dtype`
+    (the kernels take fp32; the plain version also runs in fp64, as an exact
+    reference).
 
     up_kernel (C_in, C, 4) is PyTorch's ConvTranspose1d layout; kernels[i] (C, C, k) and
     post_kernel (1, C, 7) are Conv1d layouts; kernels run chain by chain, two convs
@@ -91,22 +94,23 @@ def pack_tail_weights(up_kernel, up_bias, kernels, biases, post_kernel, post_bia
         raise ValueError("fused_tail_stage: kernels must be (C, C, k) for each conv of each "
                          "chain, in chain order")
     r = _rounder(compute_dtype)
-    f32 = lambda t: t.detach().float()
+    cast = lambda t: t.to(dtype)  # differentiable: the plain VJP runs autograd through it
     return TailWeights(
-        wup=r(f32(up_kernel)).permute(2, 0, 1).contiguous(),
-        bup=f32(up_bias).contiguous(),
-        wmrf=torch.cat([r(f32(w)).permute(2, 1, 0).reshape(-1) for w in kernels]),
-        bmrf=torch.stack([f32(b) for b in biases]).contiguous(),
-        wpost=r(f32(post_kernel))[0].t().contiguous(),
-        bpost=f32(post_bias).reshape(1).contiguous(),
+        wup=r(cast(up_kernel)).permute(2, 0, 1).contiguous(),
+        bup=cast(up_bias).contiguous(),
+        wmrf=torch.cat([r(cast(w)).permute(2, 1, 0).reshape(-1) for w in kernels]),
+        bmrf=torch.stack([cast(b) for b in biases]).contiguous(),
+        wpost=r(cast(post_kernel))[0].t().contiguous(),
+        bpost=cast(post_bias).reshape(1).contiguous(),
         kernel_sizes=kernel_sizes, dilations=dilations, compute_dtype=compute_dtype)
 
 
 def fused_tail_stage_plain(z, w: TailWeights):
-    """Stock-op version: z (B, T_in, C_in) → audio (B, 4·T_in) fp32."""
+    """Stock-op version: z (B, T_in, C_in) → audio (B, 4·T_in), in the packed weights'
+    dtype (fp32 unless packed otherwise)."""
     r = _rounder(w.compute_dtype)
     fold, C_in, C = w.wup.shape
-    x = F.leaky_relu(z.float().transpose(1, 2), 0.1)
+    x = F.leaky_relu(z.to(w.wup.dtype).transpose(1, 2), 0.1)
     x = F.conv_transpose1d(r(x), w.wup.permute(1, 2, 0), w.bup, stride=fold)
     acc = None
     off = i = 0
@@ -128,23 +132,34 @@ def fused_tail_stage_plain(z, w: TailWeights):
     return torch.tanh(audio)[:, 0, :]
 
 
-def _lib():
+_bound: set = set()  # sources whose library functions are typed and checked
+
+
+def _load(source: str, fn: str, argtypes: list, limits: dict):
+    """The library built from `csrc/<source>.cu`, its function `fn` typed, and the
+    tiling limits it reports (`<fn>_limits`) checked against the wrapper's."""
     from ttscube_tpu_torch.ops import _build
 
-    lib = _build.load(KERNEL_SOURCE)
-    if not getattr(_lib, "bound", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ttscube_fused_tail_stage.argtypes = [p, i, i, i, p, p, p, p, p, p, p, i, p, p]
-        lib.ttscube_fused_tail_stage.restype = ctypes.c_int
-        lib.ttscube_fused_tail_stage_limits.argtypes = [p]
-        lib.ttscube_fused_tail_stage_limits.restype = ctypes.c_int
-        vals = (ctypes.c_int * len(LIMITS))()
-        lib.ttscube_fused_tail_stage_limits(ctypes.cast(vals, p))
-        if dict(zip(LIMITS, vals)) != LIMITS:
-            raise RuntimeError(f"fused_tail_stage: the library's limits {list(vals)} differ "
-                               f"from the wrapper's {LIMITS}")
-        _lib.bound = True
+    lib = _build.load(source)
+    if source not in _bound:
+        p = ctypes.c_void_p
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn + "_limits").argtypes = [p]
+        getattr(lib, fn + "_limits").restype = ctypes.c_int
+        vals = (ctypes.c_int * len(limits))()
+        getattr(lib, fn + "_limits")(ctypes.cast(vals, p))
+        if dict(zip(limits, vals)) != limits:
+            raise RuntimeError(f"{source}: the library's limits {list(vals)} differ from "
+                               f"the wrapper's {limits}")
+        _bound.add(source)
     return lib
+
+
+def _lib():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _load(KERNEL_SOURCE, "ttscube_fused_tail_stage",
+                 [p, i, i, i, p, p, p, p, p, p, p, i, p, p], LIMITS)
 
 
 def fused_tail_stage(z, w: TailWeights):
@@ -190,3 +205,170 @@ def tail_flops(batch: int, t_in: int, c_in: int, kernel_sizes, dilations) -> int
     per_sample += sum(2 * len(d) * k * C * C for k, d in zip(kernel_sizes, dilations))
     per_sample += LIMITS["post_k"] * C                                       # conv_post
     return 2 * per_sample * batch * t_in * LIMITS["fold"]
+
+
+# -- the backward: kernel B2 -----------------------------------------------------------
+
+GRAD_KERNEL_SOURCE = "fused_tail_stage_grad"
+GRAD_LIMITS = dict(LIMITS, tile=256, halo=64, margin=32)
+# thread blocks of the backward kernel: one per SM of an H100. Each walks a fixed list
+# of tiles and keeps its own weight-grad partial, so the grads' summation order, and so
+# their bits, depend on this number and never on scheduling.
+GRAD_BLOCKS = 132
+
+
+def _lib_grad():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _load(GRAD_KERNEL_SOURCE, "ttscube_fused_tail_stage_grad",
+                 [p, i, i, i] + [p] * 9 + [i, p, p, ctypes.c_longlong, p, p], GRAD_LIMITS)
+
+
+def _conv_sizes(w: TailWeights) -> list:
+    """Kernel size of each MRF conv, in chain order."""
+    return [k for k, dils in zip(w.kernel_sizes, w.dilations) for _ in range(2 * len(dils))]
+
+
+def _flip_transpose_mrf(w: TailWeights):
+    """Each packed MRF kernel [k][c_in][c_out] as [k][c_out][c_in] with the taps
+    reversed: the kernel of the conv that pulls a cotangent back through it."""
+    C = LIMITS["channels"]
+    out, off = [], 0
+    for k in _conv_sizes(w):
+        out.append(w.wmrf[off: off + k * C * C].view(k, C, C).flip(0).transpose(1, 2)
+                   .reshape(-1))
+        off += k * C * C
+    return torch.cat(out)
+
+
+def fused_tail_stage_grad(z, w: TailWeights, dy):
+    """The VJP of `fused_tail_stage` (fp32): from z (B, T_in, C_in) and the audio's
+    cotangent dy (B, 4·T_in), (dz, d wup, d bup, d wmrf, d bmrf, d wpost, d bpost), the
+    weight grads in the packed layouts of `TailWeights`.
+
+    It launches the kernel `csrc/fused_tail_stage_grad.cu` on CUDA tensors and raises
+    for anything else: CPU tensors take autograd through `fused_tail_stage_plain`
+    (`FusedTailStageGrad.backward`). The sum of the blocks' grad partials and the
+    overlap-add of the tiles' halo rows into dz are torch ops in a fixed order.
+    `fused_tail_stage_grad.launches` counts kernel launches."""
+    if z.device.type != "cuda":
+        raise ValueError(f"fused_tail_stage_grad: the kernel runs on CUDA tensors, got {z.device}")
+    if w.compute_dtype is not None:
+        raise ValueError("fused_tail_stage_grad: fp32 weights only (bf16 training waits)")
+    B, T_in, C_in = z.shape if z.dim() == 3 else (0, 0, 0)
+    fold = LIMITS["fold"]
+    if (z.dtype != torch.float32 or z.dim() != 3 or not z.is_contiguous()
+            or C_in != w.wup.shape[1]):
+        raise ValueError("fused_tail_stage_grad: z must be a contiguous fp32 (B, T_in, "
+                         f"{w.wup.shape[1]}) tensor, got {z.dtype} {tuple(z.shape)}")
+    if (dy.dtype != torch.float32 or tuple(dy.shape) != (B, fold * T_in)
+            or not dy.is_contiguous() or dy.device != z.device):
+        raise ValueError(f"fused_tail_stage_grad: dy must be a contiguous fp32 ({B}, "
+                         f"{fold * T_in}) tensor on z's device, got {dy.dtype} "
+                         f"{tuple(dy.shape)} on {dy.device}")
+    tensors = (w.wup, w.bup, w.wmrf, w.bmrf, w.wpost, w.bpost)
+    if any(t.device != z.device or not t.is_contiguous() or t.dtype != torch.float32
+           for t in tensors):
+        raise ValueError("fused_tail_stage_grad: packed weights must be contiguous fp32 "
+                         "on the input's device")
+    lib = _lib_grad()
+    G = GRAD_LIMITS
+    C, tile, slab = G["channels"], G["tile"], G["tile"] + 2 * G["halo"]
+    zrows, core, lo = slab // fold, tile // fold, G["halo"] // fold
+    n_tiles = -(-fold * T_in // tile)
+    n_blocks = min(GRAD_BLOCKS, B * n_tiles)
+    n_convs = w.bmrf.shape[0]
+    sizes = [t.numel() for t in tensors]
+    wt = _flip_transpose_mrf(w)
+    dev = z.device
+    workspace = torch.empty(n_blocks * (n_convs + 1) * slab * C, device=dev)
+    stride = -(-sum(sizes) // 4) * 4  # each block's partial 16-byte aligned
+    partials = torch.zeros(n_blocks, stride, device=dev)
+    dzs = torch.empty(B, n_tiles, zrows, C_in, device=dev)
+    spec = w.spec
+    spec_arr = (ctypes.c_int * len(spec))(*spec)
+    err = lib.ttscube_fused_tail_stage_grad(
+        z.data_ptr(), B, T_in, C_in, dy.data_ptr(), w.wup.data_ptr(), w.bup.data_ptr(),
+        w.wmrf.data_ptr(), wt.data_ptr(), w.bmrf.data_ptr(), w.wpost.data_ptr(),
+        w.bpost.data_ptr(), ctypes.cast(spec_arr, ctypes.c_void_p), n_blocks,
+        workspace.data_ptr(), partials.data_ptr(), stride, dzs.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_tail_stage_grad: kernel launch failed with CUDA error {err}")
+    fused_tail_stage_grad.launches += 1
+    grads = [g.view_as(t) for g, t in
+             zip(partials.sum(0)[: sum(sizes)].split(sizes), tensors)]
+    # tile i holds the cotangent of z rows [core·i − lo, core·i + core + lo): its core
+    # rows, plus its halo rows overlapping the neighbouring tiles' cores
+    dz = dzs[:, :, lo: lo + core].clone()
+    dz[:, :-1, core - lo:] += dzs[:, 1:, :lo]
+    dz[:, 1:, :lo] += dzs[:, :-1, lo + core:]
+    dz = dz.reshape(B, n_tiles * core, C_in)[:, :T_in]
+    return (dz, *grads)
+
+
+fused_tail_stage_grad.launches = 0
+
+
+class FusedTailStageGrad(torch.autograd.Function):
+    """The stage (fp32, with conv_post) as an autograd Function: forward through
+    kernel B1, backward through kernel B2. It takes the stage's weights in PyTorch's
+    layouts (ConvTranspose1d (C_in, C, 4), Conv1d (C, C, k) and (1, C, 7)), already
+    weight-normed and carrying their graph, packs them in every call (they change every
+    step) and hands the grads back in the same layouts. It saves z and the weights, no
+    activation: B2 recomputes them.
+
+    On CPU tensors the forward is the plain version and the backward autograd through
+    it; on CUDA tensors the kernels run or the call raises."""
+
+    @staticmethod
+    def forward(ctx, kernel_sizes, dilations, z, up_kernel, up_bias, post_kernel,
+                post_bias, *kernels_biases):
+        n = len(kernels_biases) // 2
+        kernels, biases = kernels_biases[:n], kernels_biases[n:]
+        w = pack_tail_weights(up_kernel, up_bias, kernels, biases, post_kernel, post_bias,
+                              kernel_sizes=kernel_sizes, dilations=dilations)
+        ctx.spec = (kernel_sizes, dilations)
+        ctx.packed = w
+        ctx.save_for_backward(z, up_kernel, up_bias, post_kernel, post_bias,
+                              *kernels_biases)
+        return fused_tail_stage(z.contiguous(), w)
+
+    @staticmethod
+    def backward(ctx, daudio):
+        z, up_kernel, up_bias, post_kernel, post_bias, *kb = ctx.saved_tensors
+        n = len(kb) // 2
+        if z.device.type == "cpu":
+            leaves = [t.detach().requires_grad_() for t in
+                      (z, up_kernel, up_bias, post_kernel, post_bias, *kb)]
+            with torch.enable_grad():
+                lz, lup, lub, lpk, lpb, *lkb = leaves
+                w = pack_tail_weights(lup, lub, lkb[:n], lkb[n:], lpk, lpb,
+                                      kernel_sizes=ctx.spec[0], dilations=ctx.spec[1])
+                out = fused_tail_stage_plain(lz, w)
+            grads = torch.autograd.grad(out, leaves, daudio)
+            return (None, None, *grads)
+        dz, dwup, dbup, dwmrf, dbmrf, dwpost, dbpost = fused_tail_stage_grad(
+            z.contiguous(), ctx.packed, daudio.contiguous())
+        C = LIMITS["channels"]
+        d_kernels, off = [], 0
+        for k in _conv_sizes(ctx.packed):
+            d_kernels.append(dwmrf[off: off + k * C * C].view(k, C, C).permute(2, 1, 0))
+            off += k * C * C
+        return (None, None, dz, dwup.permute(1, 2, 0), dbup, dwpost.t()[None],
+                dbpost.view_as(post_bias), *d_kernels, *dbmrf.unbind(0))
+
+
+def fused_tail_stage_train(z, up_kernel, up_bias, kernels, biases, post_kernel, post_bias,
+                           *, kernel_sizes, dilations):
+    """Audio (B, 4·T_in) of the stage, differentiable in z and every weight, through
+    `FusedTailStageGrad`."""
+    return FusedTailStageGrad.apply(
+        tuple(kernel_sizes), tuple(tuple(d) for d in dilations), z, up_kernel, up_bias,
+        post_kernel, post_bias, *kernels, *biases)
+
+
+def tail_grad_flops(batch: int, t_in: int, c_in: int, kernel_sizes, dilations) -> int:
+    """Operations of the stage's VJP for this input: the forward recomputed, then for
+    every conv (upsample, MRF, conv_post) its input's cotangent and its weight grad,
+    each as many multiply-adds as the conv itself; so 3 × `tail_flops`."""
+    return 3 * tail_flops(batch, t_in, c_in, kernel_sizes, dilations)

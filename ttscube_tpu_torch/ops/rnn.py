@@ -3,7 +3,8 @@
 `nn.LSTM` (cuDNN on the card) over batch-first (B, T, D) input. Its gates are in the
 same i, f, g, o order as the JAX scan. The JAX module stores one bias per layer and
 direction (b_ih + b_hh); the port loads it into `bias_ih` and keeps `bias_hh` at zero
-(`ttscube_tpu_torch.convert`).
+(`ttscube_tpu_torch.convert`), taking no grads: a trained second bias would give the
+sum two optimizer updates per step where JAX gives it one.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ class LSTM(nn.LSTM):
                  bidirectional: bool = False):
         super().__init__(input_size, features, num_layers=num_layers,
                          bidirectional=bidirectional, batch_first=True)
+        for name, p in self.named_parameters():
+            if name.startswith("bias_hh"):
+                p.requires_grad_(False)
 
     def init_weights(self, gen: torch.Generator):
         # JAX init: every weight and the single bias ~ U(−1/√H, 1/√H)
