@@ -5,24 +5,34 @@
 
 Phases, each printing one line with its seconds as it ends:
   device      the card (nvidia-smi name and power limit) and the CUDA version
-  build       the kernel sources ttscube_tpu_torch/csrc/fused_tail_stage{,_grad}.cu, by
-              plain nvcc, in parallel, with each one's ptxas register and spill line
+  build       the kernel sources ttscube_tpu_torch/csrc/{fused_tail_stage,
+              fused_tail_stage_grad,fused_mrf_stage}.cu, by plain nvcc, in parallel, with
+              each one's ptxas register and spill line
   kernel      B1 (the fused tail stage) against its plain PyTorch version at serving
               shapes, fp32 (TF32 off) and bf16 (limits below), raising on a miss
+  kernel_mrf  B3 (a whole MRF stage) likewise, at the serving shapes of v1's stages 0
+              and 1, a ragged shape and C = 32, with a witness on the CPU; two launches
+              must be bit-equal
+  kernel_mid  B1-mid (a whole middle stage: upsample and MRF) likewise, at stage 2
   kernel_grad B2 (the tail stage's backward) against autograd through the plain
               version, fp32 (TF32 off): at the training shape for four seeds, and at a
               ragged one on all blocks and on 3; two launches must give bit-equal grads
   serve       TTSCube at the full Cubegan v1 width from seeded random weights answers three
               requests; the B1 launch counter must rise by one per request; one more
               request in fp32 (TF32 off) must match the same model run on the CPU
+  serve_wide  the same with every generator stage fused (fuse_channels 256, 128, 64, 32):
+              per request B3 launches twice, B1-mid and B1 once; an fp32 request (TF32
+              off) must match the CPU; in a bf16 request each fused stage, fed what the
+              CPU's run of that request gave it, must meet the bf16 limits against the
+              CPU's stage
   train       train_step at the full v1 width (fp32, fused_tail_train) on a batch of 16
               utterances built by CubeganCollate, five steps: finite losses, every
               partition moves, B1 and B2 launch once per step
   train_check one step on the card (TF32 off) against the same step on the CPU
-  times       B1's and B2's median times beside their plain versions and bounds, and
+  times       each kernel's median time beside its plain version's and its bound, and
               the train step's median
-  profile     one served request and one train step under torch.profiler: device-busy
-              share, top kernels
+  profile     one served request, one with every stage fused and one train step under
+              torch.profiler: device-busy share, top kernels
 
 Serving, training, their times and their profiles run under PyTorch's default TF32
 settings, as a user's program does; only the fp32 comparisons and the kernels' fp32
@@ -54,6 +64,10 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 TOL_FP32 = 5e-5   # the repo's audio tolerance (tests/test_composed_parity.py)
+# B3 and B1-mid in fp32: the JAX package's MRF tolerance (tests/test_pallas_resblock.py,
+# 3e-5 on activations of unit scale), scaled to the activation's range
+TOL_MRF = 3e-5
+WIDE = (256, 128, 64, 32)  # fuse_channels with every HiFi-GAN v1 stage fused
 TOL_GRAD = 2e-4   # rtol = atol of the JAX package's grad tests (tests/test_pallas_resblock.py)
 TOL_LOSS = 1e-4   # relative, a train step's losses on the card against the CPU
 # At the training shape no fp32 VJP of the stage, the plain one included, meets TOL_GRAD
@@ -210,6 +224,104 @@ def rel_rms(a, b) -> float:
     return float(d.norm() / b.double().norm().clamp(min=1e-300))
 
 
+def counters() -> dict:
+    """Every kernel wrapper, by kernel name; each counts its launches in `.launches`."""
+    from ttscube_tpu_torch.ops import fused_mrf, fused_tail
+
+    return {"fused_tail_stage": fused_tail.fused_tail_stage,
+            "fused_tail_stage_grad": fused_tail.fused_tail_stage_grad,
+            "fused_mrf1": fused_mrf.fused_mrf1,
+            "fused_tail_stage_mid": fused_tail.fused_tail_stage_mid}
+
+
+def zero_counts() -> None:
+    for f in counters().values():
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: f.launches for name, f in counters().items()}
+
+
+def moved(w, device):
+    """Packed weights (a NamedTuple of tensors and specs) on `device`."""
+    import torch
+
+    return w._replace(**{f: getattr(w, f).to(device) for f in w._fields
+                         if isinstance(getattr(w, f), torch.Tensor)})
+
+
+def bf16_check(what: str, floor, err, ctl, wit) -> None:
+    """The bf16 limits: the kernel (err) and the witness (wit) within BF16_RMS of the
+    floor's RMS and BF16_MAX of its max, the control (ctl) not; each a (max, RMS)."""
+    within = lambda d: d[1] <= BF16_RMS * floor[1] and d[0] <= BF16_MAX * floor[0]
+    print(f"  {what} limit: max<={BF16_MAX * floor[0]:.3e} rms<={BF16_RMS * floor[1]:.3e}",
+          flush=True)
+    for name, d in (("floor", floor), ("kernel", err), ("control", ctl), ("witness", wit)):
+        print(f"  {what} {name}: max={d[0]:.3e} rms={d[1]:.3e} ({d[0] / floor[0]:.3f}, "
+              f"{d[1] / floor[1]:.3f} of the floor)", flush=True)
+    check(floor[0] > 1e-4, f"{what}: bf16 operands did not move the plain version")
+    check(within(err), f"{what}: {err} is not within {BF16_RMS} (RMS) and {BF16_MAX} (max) "
+                       f"of the floor {floor}")
+    check(not within(ctl), f"{what}: the fp32 control passed")
+    check(within(wit), f"{what}: the limits are tighter than summation order alone allows "
+                       f"(witness {wit})")
+
+
+def check_stage_kernel(what: str, kernel, plain, x, w32, w16) -> tuple:
+    """A stage kernel (B3 or B1-mid) against its plain version on x: fp32 (TF32 off)
+    within TOL_MRF scaled to the output's range, which the plain version on the CPU
+    (the witness) must meet too; bf16 within the limits of `bf16_check`; two launches
+    bit-equal. Returns the kernel's max abs errors (fp32, bf16)."""
+    import torch
+
+    with no_tf32():
+        got32, again, got16 = kernel(x, w32), kernel(x, w32), kernel(x, w16)
+        want32, want16 = plain(x, w32), plain(x, w16)
+        torch.cuda.synchronize()
+    for got in (got32, got16):
+        check(got.shape == want32.shape and bool(torch.isfinite(got).all()),
+              f"{what}: shape {tuple(got.shape)} vs {tuple(want32.shape)}, or not finite")
+    check(torch.equal(got32, again), f"{what}: two launches gave different outputs")
+    xc, w32c, w16c = x.cpu(), moved(w32, "cpu"), moved(w16, "cpu")
+    limit = TOL_MRF * max(1.0, float(want32.abs().max()))
+    err, wit = distance(got32, want32)[0], distance(plain(xc, w32c), want32)[0]
+    print(f"  {what} fp32 max_abs_err={err:.3e} witness={wit:.3e} limit={limit:.3e} "
+          f"(TOL_MRF {TOL_MRF:.0e} x max(1, max|plain| = {float(want32.abs().max()):.3f})) "
+          f"bit_equal_relaunch=True", flush=True)
+    check(err <= limit, f"{what} fp32: max abs err {err:.3e} > {limit:.3e}")
+    check(wit <= limit, f"{what} fp32: the plain version on the CPU misses the limit")
+    e16 = distance(got16, want16)
+    bf16_check(f"{what} bf16", distance(want16, want32), e16, distance(got32, want16),
+               distance(plain(xc, w16c), want16))
+    return err, e16[0]
+
+
+@contextlib.contextmanager
+def recorded_stages():
+    """The fused stages that `generator_apply_fused` runs inside, in stage order: (the
+    wrapper's name, its input, its packed weights)."""
+    from ttscube_tpu_torch.models import hifigan_fused as hf
+
+    names = ("fused_mrf1", "fused_tail_stage_mid", "fused_tail_stage")
+    saved = {n: getattr(hf, n) for n in names}
+    seen = []
+
+    def recorder(name, fn):
+        def call(x, w):
+            seen.append((name, x.detach().clone(), w))
+            return fn(x, w)
+        return call
+
+    for n in names:
+        setattr(hf, n, recorder(n, saved[n]))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(hf, n, saved[n])
+
+
 def train_batch(enc, batch: int, seed: int) -> dict:
     """`batch` utterances of at least 60 frames (the GAN window is 50) through the
     port's CubeganCollate, from seeded numpy phones, durations, pitch and audio."""
@@ -294,6 +406,7 @@ def print_profile(what: str, wall_ms, busy_ms, by_name, n_events) -> None:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -317,10 +430,10 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # -- build --------------------------------------------------------------------
-    from ttscube_tpu_torch.ops import _build, fused_tail
+    from ttscube_tpu_torch.ops import _build, fused_mrf, fused_tail
 
     t0 = time.perf_counter()
-    sources = (fused_tail.KERNEL_SOURCE, fused_tail.GRAD_KERNEL_SOURCE)
+    sources = (fused_tail.KERNEL_SOURCE, fused_tail.GRAD_KERNEL_SOURCE, fused_mrf.KERNEL_SOURCE)
     _build.load_all(sources)
     for source in sources:
         for line in _build.nvcc_log(source).splitlines():
@@ -354,29 +467,53 @@ def main() -> int:
             # bf16: the floor, the kernel, the control (the kernel in fp32), and a witness
             # of what summation order alone does: the plain version on the CPU, whose
             # convs add in another order than cuDNN's
-            floor = distance(want16, want32)
             err = distance(got16, want16)
-            ctl = distance(got32, want16)
-            wit = distance(fused_tail.fused_tail_stage_plain(
-                z.cpu(), w16._replace(**{f: getattr(w16, f).cpu() for f in
-                                         ("wup", "bup", "wmrf", "bmrf", "wpost", "bpost")})),
-                want16)
             errs[("bf16", batch, frames)] = err[0]
-            within = lambda d: d[1] <= BF16_RMS * floor[1] and d[0] <= BF16_MAX * floor[0]
-            print(f"  fused_tail_stage bf16 {case} limit: max<={BF16_MAX * floor[0]:.3e} "
-                  f"rms<={BF16_RMS * floor[1]:.3e}", flush=True)
-            for name, d in (("floor", floor), ("kernel", err), ("control", ctl),
-                            ("witness", wit)):
-                print(f"  fused_tail_stage bf16 {case} {name}: max={d[0]:.3e} "
-                      f"rms={d[1]:.3e} ({d[0] / floor[0]:.3f}, {d[1] / floor[1]:.3f} of "
-                      f"the floor)", flush=True)
-            check(floor[0] > 1e-4, "bf16 operands did not move the plain version")
-            check(within(err), f"fused_tail_stage bf16 {case}: {err} is not within "
-                               f"{BF16_RMS} (RMS) and {BF16_MAX} (max) of the floor {floor}")
-            check(not within(ctl), f"fused_tail_stage bf16 {case}: the fp32 control passed")
-            check(within(wit), f"bf16 {case}: the limits are tighter than summation order "
-                               f"alone allows (witness {wit})")
+            bf16_check(f"fused_tail_stage bf16 {case}", distance(want16, want32), err,
+                       distance(got32, want16),
+                       distance(fused_tail.fused_tail_stage_plain(z.cpu(), moved(w16, "cpu")),
+                                want16))
     say("kernel", t0, checks=len(errs))
+
+    # -- kernel_mrf -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    c = gen.config
+    mrf_errs, grids = {}, {}
+    convs32 = [cv for j in range(len(c.resblock_kernel_sizes)) for cv in getattr(gen, f"res_3_{j}").convs()]
+    with torch.no_grad():
+        w_c32 = {cd: fused_mrf.pack_mrf_weights(
+            [cv.weight() for cv in convs32], [cv.bias for cv in convs32],
+            kernel_sizes=c.resblock_kernel_sizes, dilations=c.resblock_dilation_sizes,
+            compute_dtype=cd) for cd in (None, torch.bfloat16)}
+    for label, batch, t_len, weights in (
+            ("stage0", 1, 1280, lambda cd: gen.stage_weights(0, cd)),   # 256 frames
+            ("stage1", 1, 3840, lambda cd: gen.stage_weights(1, cd)),
+            ("ragged", 2, 701, lambda cd: gen.stage_weights(1, cd)),
+            ("C=32", 1, 4000, lambda cd: w_c32[cd])):
+        m32, m16 = weights(None), weights(torch.bfloat16)
+        g = torch.Generator().manual_seed(t_len)
+        x = torch.randn(batch, t_len, m32.channels, generator=g).to(dev)
+        mrf_errs[label] = check_stage_kernel(
+            f"fused_mrf1 {label} B={batch} T={t_len} C={m32.channels}", fused_mrf.fused_mrf1,
+            fused_mrf.fused_mrf_plain, x, m32, m16)
+        grids[label] = fused_mrf.fused_mrf1.last_grid
+    print(f"  fused_mrf1 thread blocks (256 threads each) per launch: {grids}", flush=True)
+    say("kernel_mrf", t0, checks=2 * len(mrf_errs))
+
+    # -- kernel_mid -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    mid_errs = {}
+    m32, m16 = gen.stage_weights(2, None), gen.stage_weights(2, torch.bfloat16)
+    for label, batch, t_in in (("stage2", 1, 3840), ("ragged", 2, 301)):
+        g = torch.Generator().manual_seed(t_in)
+        z = torch.randn(batch, t_in, 128, generator=g).to(dev)
+        mid_errs[label] = check_stage_kernel(
+            f"fused_tail_stage_mid {label} B={batch} T_in={t_in}",
+            fused_tail.fused_tail_stage_mid, fused_tail.fused_tail_stage_plain, z, m32, m16)
+        grids["mid " + label] = fused_tail.fused_tail_stage_mid.last_grid
+    print(f"  fused_tail_stage_mid thread blocks per launch: stage2 {grids['mid stage2']}, "
+          f"ragged {grids['mid ragged']}", flush=True)
+    say("kernel_mid", t0, checks=2 * len(mid_errs))
 
     # -- kernel_grad --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -454,7 +591,7 @@ def main() -> int:
     cube = TTSCube.from_state_dicts(cfg, enc, penc, state, pstate, device="cuda")
     cube("warm up.", speaker=speaker)  # first-call set-up (cuDNN handles, kernel load)
     torch.cuda.synchronize()
-    fused_tail.fused_tail_stage.launches = 0
+    zero_counts()
     served = []
     for text in REQUESTS:
         total = cube.frames(text, speaker=speaker)  # the duration pass alone
@@ -469,9 +606,11 @@ def main() -> int:
         served.append(total)
         print(f"  request chars={len(text)} frames={total} samples={pcm.shape[0]} "
               f"ms={ms:.1f} peak={int(abs(pcm.astype('int32')).max())}", flush=True)
-    main_launches = fused_tail.fused_tail_stage.launches
-    check(main_launches == len(REQUESTS),
-          f"fused_tail_stage launched {main_launches} times for {len(REQUESTS)} requests")
+    serve_counts = read_counts()
+    main_launches = serve_counts["fused_tail_stage"]
+    check(serve_counts == dict(read_counts(), fused_tail_stage=len(REQUESTS), fused_mrf1=0,
+                               fused_tail_stage_mid=0, fused_tail_stage_grad=0),
+          f"launches for {len(REQUESTS)} requests: {serve_counts}")
     check(len(set(served)) == len(served), "the requests were meant to differ in length")
 
     # the same model in fp32 on the card and on the CPU: equal durations, equal audio
@@ -487,6 +626,79 @@ def main() -> int:
           flush=True)
     check(err <= TOL_FP32, f"fp32 audio on the card differs from the CPU by {err:.3e}")
     say("serve", t0, requests=len(REQUESTS), launches=main_launches)
+
+    # -- serve_wide -------------------------------------------------------------------
+    t0 = time.perf_counter()
+    wide_cfg = lambda **h: config_from_yaml({"hifigan": dict(h, fuse_channels=list(WIDE))}, enc)
+    wide = TTSCube.from_state_dicts(wide_cfg(), enc, penc, state, pstate, device="cuda")
+    wide("warm up.", speaker=speaker)
+    torch.cuda.synchronize()
+    zero_counts()
+    per_request = dict(fused_tail_stage=1, fused_tail_stage_grad=0, fused_mrf1=2,
+                       fused_tail_stage_mid=1)
+    for text, frames in zip(REQUESTS, served):
+        before = read_counts()
+        t1 = time.perf_counter()
+        pcm = wide(text, speaker=speaker)
+        ms = (time.perf_counter() - t1) * 1e3
+        rise = {n: v - before[n] for n, v in read_counts().items()}
+        check(rise == per_request, f"serve_wide: launches per request {rise}, want {per_request}")
+        check(pcm.dtype.name == "int16" and pcm.shape == (frames * HOP,),
+              f"served audio {pcm.dtype} {pcm.shape}, want int16 ({frames * HOP},)")
+        print(f"  request chars={len(text)} frames={frames} samples={pcm.shape[0]} "
+              f"ms={ms:.1f} peak={int(abs(pcm.astype('int32')).max())}", flush=True)
+    wide_counts = read_counts()
+    check(all(wide_counts[n] == len(REQUESTS) * k for n, k in per_request.items()),
+          f"serve_wide launches {wide_counts}")
+    # fp32 (TF32 off): the card against the CPU, end to end
+    on_card = TTSCube.from_state_dicts(wide_cfg(storage_dtype="float32"), enc, penc, state,
+                                       pstate, device="cuda")
+    on_cpu = TTSCube.from_state_dicts(wide_cfg(storage_dtype="float32"), enc, penc, state,
+                                      pstate, device="cpu")
+    with no_tf32():
+        a_card, n_card = on_card.synthesize(REQUESTS[0], speaker=speaker)
+    a_cpu32, n_cpu = on_cpu.synthesize(REQUESTS[0], speaker=speaker)
+    check(n_card == n_cpu, f"durations differ: card {n_card} frames, CPU {n_cpu}")
+    err = float(abs(a_card - a_cpu32).max())
+    print(f"  fp32 card vs cpu, every stage fused: frames={n_card} max_abs_err={err:.3e} "
+          f"tol={TOL_FP32:.0e}", flush=True)
+    check(err <= TOL_FP32, f"fp32 audio on the card differs from the CPU by {err:.3e}")
+    # bf16 (served dtypes): each fused stage of one request, fed what the CPU's run of
+    # the request gave it, against the CPU's stage. End to end the bf16 limits do not
+    # apply: a flipped bf16 rounding grows through four fused stages (PERF.md), so the
+    # audio's distance is printed beside its floor, not held to a fraction of it.
+    cpu16 = TTSCube.from_state_dicts(wide_cfg(), enc, penc, state, pstate, device="cpu")
+    with recorded_stages() as stages:
+        a_cpu16, n_cpu16 = cpu16.synthesize(REQUESTS[0], speaker=speaker)
+    a_card16, n_card16 = wide.synthesize(REQUESTS[0], speaker=speaker)
+    check(n_card16 == n_cpu16 == n_cpu, "bf16 durations differ between card and CPU")
+    check([n for n, _, _ in stages] == ["fused_mrf1", "fused_mrf1", "fused_tail_stage_mid",
+                                        "fused_tail_stage"], f"fused stages {stages}")
+    kernels = {"fused_mrf1": (fused_mrf.fused_mrf1, fused_mrf.fused_mrf_plain),
+               "fused_tail_stage_mid": (fused_tail.fused_tail_stage_mid,
+                                        fused_tail.fused_tail_stage_plain),
+               "fused_tail_stage": (fused_tail.fused_tail_stage,
+                                    fused_tail.fused_tail_stage_plain)}
+    for i, (name, x, s16) in enumerate(stages):
+        kernel, plain = kernels[name]
+        s32 = cpu16.model.gen.stage_weights(i, None)
+        with no_tf32(), torch.no_grad():
+            want16, want32 = plain(x, s16), plain(x, s32)
+            xd, s16d, s32d = x.to(dev), moved(s16, dev), moved(s32, dev)
+            got16, got32, card_plain16 = kernel(xd, s16d), kernel(xd, s32d), plain(xd, s16d)
+            torch.cuda.synchronize()
+        bf16_check(f"serve_wide bf16 request stage {i} ({name}, input {tuple(x.shape)})",
+                   distance(want16, want32), distance(got16, want16),
+                   distance(got32, want16), distance(card_plain16, want16))
+    floor = distance(torch.from_numpy(a_cpu16), torch.from_numpy(a_cpu32))
+    end = distance(torch.from_numpy(a_card16), torch.from_numpy(a_cpu16))
+    print(f"  bf16 request end to end, card vs cpu: max={end[0]:.3e} rms={end[1]:.3e}; "
+          f"floor (cpu bf16 vs fp32) max={floor[0]:.3e} rms={floor[1]:.3e} "
+          f"({end[0] / floor[0]:.3f}, {end[1] / floor[1]:.3f} of it)", flush=True)
+    check(bool(np.isfinite(a_card16).all()), "serve_wide: non-finite bf16 audio")
+    say("serve_wide", t0, requests=len(REQUESTS), launches_b3=wide_counts["fused_mrf1"],
+        launches_b1_mid=wide_counts["fused_tail_stage_mid"],
+        launches_b1=wide_counts["fused_tail_stage"])
 
     # -- train ----------------------------------------------------------------------
     import copy
@@ -505,7 +717,7 @@ def main() -> int:
                         if n.startswith(top + ".") and p.requires_grad) for top in tops}
     before = {top: p.detach().clone() for top, p in firsts.items()}
     torch.cuda.synchronize()
-    fused_tail.fused_tail_stage.launches = fused_tail.fused_tail_stage_grad.launches = 0
+    zero_counts()
     step_ms = []
     for step in range(TRAIN_STEPS):
         b1, b2 = fused_tail.fused_tail_stage.launches, fused_tail.fused_tail_stage_grad.launches
@@ -609,6 +821,44 @@ def main() -> int:
           f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) achieved="
           f"{flops / grad_row['ms'] / 1e9:.2f} TFLOP/s library_ms=none (no single PyTorch "
           f"call computes the stage VJP)", flush=True)
+    # B3 at the shapes of v1's stages 0 and 1, B1-mid at stage 2's, for a request of 256
+    # frames: the kernel against its plain version, in turns, bf16 under the default
+    # TF32 settings (as served), fp32 in full fp32; bounds from this run's shapes
+    stage_rows = {}
+    for label, i, t_len, c_in in (("fused_mrf1 stage0", 0, 1280, 256),
+                                  ("fused_mrf1 stage1", 1, 3840, 128),
+                                  ("fused_tail_stage_mid stage2", 2, 3840, 128)):
+        g = torch.Generator().manual_seed(t_len)
+        x = torch.randn(1, t_len, c_in, generator=g).to(dev)
+        for mode, cd, peak in (("bf16", torch.bfloat16, PEAK_BF16), ("fp32", None, PEAK_FP32)):
+            w = gen.stage_weights(i, cd)
+            if i < 2:
+                kernel = lambda: fused_mrf.fused_mrf1(x, w)
+                plain = lambda: fused_mrf.fused_mrf_plain(x, w)
+                flops = fused_mrf.mrf_flops(1, t_len, c_in, w.kernel_sizes, w.dilations)
+                n_out, n_w = x.numel(), w.w.numel() + w.b.numel()
+            else:
+                kernel = lambda: fused_tail.fused_tail_stage_mid(x, w)
+                plain = lambda: fused_tail.fused_tail_stage_plain(x, w)
+                C = w.wup.shape[2]
+                flops = fused_tail.tail_flops(1, t_len, c_in, w.kernel_sizes, w.dilations,
+                                              channels=C, with_post=False)
+                n_out = 4 * t_len * C
+                n_w = sum(t.numel() for t in (w.wup, w.bup, w.wmrf, w.bmrf))
+            with no_tf32() if cd is None else contextlib.nullcontext():
+                p1, k1, k2, p2 = (cuda_times(f, 10) for f in (plain, kernel, kernel, plain))
+            ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+            # each input read once, the output written once: x, the packed weights, out
+            nbytes = 4 * (x.numel() + n_out + n_w)
+            t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+            stage_rows[(label, mode)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+            print(f"  {label} {mode} B=1 T={t_len} C_in={c_in} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={max(t_ops, t_bytes):.4f} "
+                  f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) achieved="
+                  f"{flops / ms / 1e9:.2f} TFLOP/s library_ms=none (no single PyTorch call "
+                  f"computes this stage)", flush=True)
     print(f"  train step B={TRAIN_BATCH} median_ms={statistics.median(step_ms[1:]):.1f} "
           f"(steps 2-{TRAIN_STEPS}, host clock, default TF32) first_ms={step_ms[0]:.1f}",
           flush=True)
@@ -618,6 +868,8 @@ def main() -> int:
     t0 = time.perf_counter()
     prof = device_profile(lambda: cube(REQUESTS[1], speaker=speaker))
     print_profile(f"request frames={served[1]}", *prof)
+    prof = device_profile(lambda: wide(REQUESTS[1], speaker=speaker))
+    print_profile(f"request frames={served[1]}, every stage fused", *prof)
     prof = device_profile(lambda: tcg.train_step(state, tb))
     print_profile(f"train step B={TRAIN_BATCH}", *prof)
     say("profile", t0)
@@ -627,7 +879,7 @@ def main() -> int:
         "name": "fused_tail_stage", "route": "cuda",
         "source": "ttscube_tpu_torch/csrc/fused_tail_stage.cu",
         "replaces": "ttscube_tpu/ops/pallas_resblock.py:295",
-        "launches": main_launches + train_launches[0],
+        "launches": main_launches + wide_counts["fused_tail_stage"] + train_launches[0],
         "max_abs_err": errs[("bf16", 1, 256)],
         "ms": serving["ms"], "plain_ms": serving["plain_ms"],
         "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"],
@@ -639,7 +891,20 @@ def main() -> int:
         "max_abs_err": max(v for k, v in grad_errs.items() if k[1] == 3000),
         "ms": grad_row["ms"], "plain_ms": grad_row["plain_ms"],
         "bound_ms": grad_row["bound_ms"], "bound_by": grad_row["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "fused_mrf1", "route": "cuda",
+        "source": "ttscube_tpu_torch/csrc/fused_mrf_stage.cu",
+        "replaces": "ttscube_tpu/ops/pallas_resblock.py:754",
+        "launches": wide_counts["fused_mrf1"],
+        "max_abs_err": mrf_errs["stage0"][1],
+        **stage_rows[("fused_mrf1 stage0", "bf16")], "library_ms": None}, {
+        "name": "fused_tail_stage_mid", "route": "cuda",
+        "source": "ttscube_tpu_torch/csrc/fused_mrf_stage.cu",
+        "replaces": "ttscube_tpu/ops/pallas_resblock.py:295",
+        "launches": wide_counts["fused_tail_stage_mid"],
+        "max_abs_err": mid_errs["stage2"][1],
+        **stage_rows[("fused_tail_stage_mid stage2", "bf16")], "library_ms": None}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

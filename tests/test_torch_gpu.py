@@ -226,3 +226,139 @@ def test_fused_tail_grad_kernel_at_the_training_shape(cuda):
     assert worst_rel_rms(plain) <= GRAD_REL_RMS
     assert worst_rel_rms(control) > GRAD_REL_RMS
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# -- B3 (fused_mrf1) and B1-mid (fused_tail_stage_mid) ------------------------------------
+
+V1 = dict(ks=KS, dils=DILS)
+NARROW = dict(ks=(3, 11), dils=((1, 3), (1, 3, 5)))  # the JAX package's MRF test chains
+
+
+def _mrf_case(B, T, C, seed, device, ks, dils):
+    """x (B, T, C) and an MRF stage's kernels and biases in PyTorch layouts."""
+    rng = np.random.default_rng(seed)
+    n = lambda scale, *s: torch.from_numpy(
+        (scale * rng.standard_normal(s)).astype(np.float32)).to(device)
+    kernels = [n(0.5 / np.sqrt(k * C), C, C, k) for k, d in zip(ks, dils)
+               for _ in range(2 * len(d))]
+    return n(1.0, B, T, C), kernels, [n(0.1, C) for _ in kernels]
+
+
+def _fp32_limit(want):
+    """The JAX package's MRF tolerance (3e-5 on activations of unit scale), scaled to
+    the activation's range."""
+    return 3e-5 * max(1.0, want.abs().max().item())
+
+
+def _check_bf16(got16, want16, got32, want32):
+    """The floor scheme of the B1 test above: the kernel within half the floor's RMS
+    and within its max of the plain bf16 version, the kernel in fp32 not."""
+    floor = _distance(want16, want32)
+    within = lambda d: d[1] <= 0.5 * floor[1] and d[0] <= floor[0]
+    assert floor[0] > 1e-4
+    assert within(_distance(got16, want16)), (_distance(got16, want16), floor)
+    assert not within(_distance(got32, want16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,C,chains", [
+    (1, 1280, 256, V1),    # stage 0 of v1 at 256 frames
+    (1, 3840, 128, V1),    # stage 1
+    (2, 301, 128, NARROW),  # ragged: the last row tile is cut
+    (2, 77, 64, V1),       # shorter than one row tile
+    (1, 500, 32, V1),
+])
+def test_fused_mrf_kernel_matches_plain(cuda, B, T, C, chains):
+    """B3 against its plain version, fp32 (TF32 off) and bf16; two launches bit-equal;
+    one launch counted per call."""
+    from ttscube_tpu_torch.ops import fused_mrf
+
+    x, kernels, biases = _mrf_case(B, T, C, seed=T + C, device=cuda, **chains)
+    pack = lambda cd: fused_mrf.pack_mrf_weights(kernels, biases, kernel_sizes=chains["ks"],
+                                                 dilations=chains["dils"], compute_dtype=cd)
+    w32, w16 = pack(None), pack(torch.bfloat16)
+    before = fused_mrf.fused_mrf1.launches
+    got32, again = fused_mrf.fused_mrf1(x, w32), fused_mrf.fused_mrf1(x, w32)
+    got16 = fused_mrf.fused_mrf1(x, w16)
+    want32, want16 = fused_mrf.fused_mrf_plain(x, w32), fused_mrf.fused_mrf_plain(x, w16)
+    torch.cuda.synchronize()
+    assert fused_mrf.fused_mrf1.launches == before + 3
+    assert got32.shape == want32.shape == (B, T, C)
+    assert torch.equal(got32, again)
+    assert (got32 - want32).abs().max().item() <= _fp32_limit(want32)
+    _check_bf16(got16, want16, got32, want32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T_in,chains", [(1, 3840, V1), (2, 301, NARROW)])
+def test_fused_mid_stage_kernel_matches_plain(cuda, B, T_in, chains):
+    """B1-mid (C_in = 128 → C = 64, fold 4) against its plain version, fp32 (TF32 off)
+    and bf16; two launches bit-equal."""
+    x, kernels, biases = _mrf_case(B, T_in, 128, seed=T_in, device=cuda, **chains)
+    _, mrf_kernels, mrf_biases = _mrf_case(1, 1, 64, seed=T_in + 1, device=cuda, **chains)
+    rng = np.random.default_rng(T_in + 2)
+    up = torch.from_numpy((0.5 / np.sqrt(128) * rng.standard_normal((128, 64, 4)))
+                          .astype(np.float32)).to(cuda)
+    up_b = torch.from_numpy((0.1 * rng.standard_normal(64)).astype(np.float32)).to(cuda)
+    pack = lambda cd: fused_tail.pack_tail_weights(
+        up, up_b, mrf_kernels, mrf_biases, kernel_sizes=chains["ks"],
+        dilations=chains["dils"], compute_dtype=cd)
+    w32, w16 = pack(None), pack(torch.bfloat16)
+    before = fused_tail.fused_tail_stage_mid.launches
+    got32 = fused_tail.fused_tail_stage_mid(x, w32)
+    again = fused_tail.fused_tail_stage_mid(x, w32)
+    got16 = fused_tail.fused_tail_stage_mid(x, w16)
+    want32 = fused_tail.fused_tail_stage_plain(x, w32)
+    want16 = fused_tail.fused_tail_stage_plain(x, w16)
+    torch.cuda.synchronize()
+    assert fused_tail.fused_tail_stage_mid.launches == before + 3
+    assert got32.shape == want32.shape == (B, 4 * T_in, 64)
+    assert torch.equal(got32, again)
+    assert (got32 - want32).abs().max().item() <= _fp32_limit(want32)
+    _check_bf16(got16, want16, got32, want32)
+
+
+@pytest.mark.gpu
+def test_new_kernels_refuse_what_they_cannot_run(cuda):
+    from ttscube_tpu_torch.ops import fused_mrf
+
+    x, kernels, biases = _mrf_case(1, 40, 64, seed=0, device=cuda, **V1)
+    w = fused_mrf.pack_mrf_weights(kernels, biases, kernel_sizes=KS, dilations=DILS)
+    with pytest.raises(ValueError, match="fp32"):
+        fused_mrf.fused_mrf1(x.double(), w)
+    with pytest.raises(ValueError, match="fp32"):
+        fused_mrf.fused_mrf1(x[:, :, :32], w)
+    with pytest.raises(ValueError, match="device"):
+        fused_mrf.fused_mrf1(x, w._replace(w=w.w.cpu()))
+    z = x[:, :, :32].repeat(1, 1, 4).contiguous()  # (1, 40, 128)
+    up = torch.zeros(128, 64, 4, device=cuda)
+    wm = fused_tail.pack_tail_weights(up, torch.zeros(64, device=cuda), kernels, biases,
+                                      kernel_sizes=KS, dilations=DILS)
+    with pytest.raises(ValueError, match="fp32"):
+        fused_tail.fused_tail_stage_mid(z.double(), wm)
+    with pytest.raises(ValueError, match="conv_post"):
+        fused_tail.fused_tail_stage(z, wm)
+
+
+@pytest.mark.gpu
+def test_wide_serving_generator_matches_module_path_on_the_card(cuda):
+    """The full v1 generator with every stage fused (B3 on stages 0 and 1, B1-mid on
+    stage 2, B1 on stage 3), fp32, against Generator.forward (cuDNN convs only): 5e-5;
+    each kernel launched as often as the path has such stages."""
+    from ttscube_tpu_torch.convert import init_random
+    from ttscube_tpu_torch.models.hifigan import Generator, HifiganConfig
+    from ttscube_tpu_torch.models.hifigan_fused import generator_apply_fused
+    from ttscube_tpu_torch.ops import fused_mrf
+
+    gen = init_random(Generator(HifiganConfig()), 0).to(cuda)
+    mel = torch.from_numpy(
+        np.random.default_rng(2).standard_normal((1, 37, 80)).astype(np.float32)).to(cuda)
+    counters = (fused_mrf.fused_mrf1, fused_tail.fused_tail_stage_mid,
+                fused_tail.fused_tail_stage)
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        got = generator_apply_fused(gen, mel, gen.config, fuse_channels=(256, 128, 64, 32))
+        want = gen(mel)
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 1, 1]
+    assert got.shape == want.shape == (1, 37 * 240)
+    assert (got - want).abs().max().item() <= 5e-5

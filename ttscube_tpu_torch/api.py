@@ -29,17 +29,23 @@ from ttscube_tpu_torch.models.phonemizer import Phonemizer, PhonemizerConfig
 
 FRAME_BUCKET = 256
 MAX_FRAMES = 8192
+# keys of the JAX package's HifiganConfig that a checkpoint's yaml may hold and that
+# change no value here: `fold_narrow` and `polyphase_channels` choose exact layout
+# transforms for the TPU, `fused_train_max_batch` a batch cap measured on the TPU
+IGNORED_HIFIGAN_KEYS = ("fused_train_max_batch", "fold_narrow", "polyphase_channels")
 
 
 def config_from_yaml(conf: dict, encodings: CubeganEncodings) -> CubeganConfig:
     """The CubeganConfig the JAX TTSCube builds from a checkpoint's yaml, with the
-    serving defaults (fused tail, bf16 storage) unless the yaml opts out."""
+    serving defaults (fused tail, bf16 storage) unless the yaml opts out. The hifigan
+    keys in `IGNORED_HIFIGAN_KEYS` are accepted and dropped."""
     cond_type = conf.get("conditioning")
     if cond_type:
         raise NotImplementedError("LM-conditioned models are not ported yet")
     hifi = {k: (tuple(tuple(x) if isinstance(x, list) else x for x in v)
                 if isinstance(v, list) else v)
-            for k, v in (conf.get("hifigan") or {}).items()}
+            for k, v in (conf.get("hifigan") or {}).items()
+            if k not in IGNORED_HIFIGAN_KEYS}
     hifi.setdefault("fused_tail", True)
     hifi.setdefault("storage_dtype", "bfloat16")
     return CubeganConfig(

@@ -13,7 +13,10 @@ of the text model) with AdamW(0.8, 0.99, wd 0.01) at lr/(1 + lr_decay·step), an
 Differences from the JAX module: the port's model holds its parameters (and the MSD's
 spectral u, as buffers) and the step updates them in place; `Cubegan(config)` builds
 the serving model, `Cubegan(config, train=True)` adds the discriminators; crop offsets
-come from a `torch.Generator` or are passed in (JAX and torch random bits differ).
+are passed in or drawn from a `torch.Generator` (JAX and torch random bits differ),
+made for each train step from (seed, step) and for each validation from the seed
+alone, as JAX derives its keys: so validation never moves the training crops, and
+every validation sees the same windows.
 bf16 training (`hifigan.compute_dtype`, `disc_compute_dtype`), LM conditioning and
 chunked generation are not ported yet.
 """
@@ -239,19 +242,28 @@ def make_optimizer(model: Cubegan) -> dict:
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and spectral u), its optimizers, the step count and the
-    generator of crop offsets. `train_step` updates it in place."""
+    seed of the crop offsets. `train_step` updates it in place."""
 
     model: Cubegan
     optimizers: dict
     step: int
-    generator: torch.Generator
+    seed: int
 
 
 def create_train_state(model: Cubegan, seed: int = 0) -> TrainState:
     if not model.train_mode:
         raise ValueError("create_train_state needs Cubegan(config, train=True)")
-    return TrainState(model=model, optimizers=make_optimizer(model), step=0,
-                      generator=torch.Generator().manual_seed(seed))
+    return TrainState(model=model, optimizers=make_optimizer(model), step=0, seed=seed)
+
+
+def crop_generator(seed: int, step: int | None = None) -> torch.Generator:
+    """The generator of one step's crop offsets: from (seed, step) for a train step
+    (JAX's `fold_in(PRNGKey(seed), step)`), from the seed alone for validation (JAX's
+    fixed `val_rng`, `PRNGKey(seed + 1)`). Made afresh for each call, so that no draw
+    depends on what ran before."""
+    entropy = [seed, 1] if step is None else [seed, 0, step]
+    return torch.Generator().manual_seed(
+        int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1))
 
 
 def _step(state: TrainState, parts: str):
@@ -275,11 +287,12 @@ def _step(state: TrainState, parts: str):
 def train_step(state: TrainState, batch: dict, starts=None):
     """One GAN step with D-then-G sequencing (see the module docstring). `batch` holds
     tensors on the model's device (`batch_to_torch`); `starts` overrides the crop
-    offsets drawn from `state.generator`. Returns (state, metrics), metrics as detached
-    scalar tensors."""
+    offsets drawn from `crop_generator(state.seed, state.step)`. Returns (state,
+    metrics), metrics as detached scalar tensors."""
     model = state.model
     model.zero_grad(set_to_none=True)
-    outs, y_w = model.gan_forward(batch, TRAIN_FRAMES, starts, state.generator)
+    outs, y_w = model.gan_forward(batch, TRAIN_FRAMES, starts,
+                                  crop_generator(state.seed, state.step))
 
     # phase 1: the discriminators' step on the detached ŷ (writes the spectral u)
     loss_d = model.d_loss(y_w, outs[3].detach(), update_spectral=True)
@@ -297,8 +310,9 @@ def train_step(state: TrainState, batch: dict, starts=None):
 
 def val_step(state: TrainState, batch: dict, starts=None):
     """Validation losses on a 200-frame window, no update (the spectral u is not
-    written); `loss_mel` is the model-selection metric."""
+    written); `loss_mel` is the model-selection metric. The windows come from
+    `starts` or from `crop_generator(state.seed)`: the same at every call."""
     with torch.no_grad():
         _, metrics = state.model.losses(batch, VAL_FRAMES, update_spectral=False,
-                                        starts=starts, generator=state.generator)
+                                        starts=starts, generator=crop_generator(state.seed))
     return {k: v.detach() for k, v in metrics.items()}

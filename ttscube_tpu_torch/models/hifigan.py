@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ttscube_tpu_torch.ops.conv import SNConv1d, WNConv1d, WNConv2d, WNConvTranspose1d
+from ttscube_tpu_torch.ops.fused_mrf import MrfWeights, pack_mrf_weights
 from ttscube_tpu_torch.ops.fused_tail import TailWeights, pack_tail_weights
 
 LRELU_SLOPE = 0.1
@@ -104,27 +105,50 @@ class Generator(nn.Module):
                                              c.resblock_dilation_sizes)):
                 self.add_module(f"res_{i}_{j}", ResBlock1(ch, rk, rd, compute_dtype=cd))
         self.conv_post = WNConv1d(ch, 1, 7, padding=3)
-        self._tail_cache = None
+        self._stage_cache = {}
 
-    def tail_weights(self, compute_dtype=None) -> TailWeights:
-        """The last stage's weights packed for the fused tail stage. Packed once and
-        kept until a parameter changes (in place or by a move to another device)."""
+    def stage_weights(self, i: int, compute_dtype=None) -> TailWeights | MrfWeights:
+        """Stage i's weights packed for its fused kernel: the whole stage (upsample, MRF,
+        and on the last stage conv_post) as `TailWeights` when its upsample has kernel ==
+        stride, else its MRF as `MrfWeights`. Packed once and kept until a parameter
+        changes (in place or by a move to another device). Raises ValueError, naming the
+        stage, where the stage is beyond its kernel's limits."""
         key = (compute_dtype, self.conv_post.v.device,
                tuple(p._version for p in self.parameters()))
-        if self._tail_cache is None or self._tail_cache[0] != key:
-            c = self.config
-            i = len(c.upsample_rates) - 1
-            convs = [conv for j in range(len(c.resblock_kernel_sizes))
-                     for conv in getattr(self, f"res_{i}_{j}").convs()]
-            up = getattr(self, f"up_{i}")
-            with torch.no_grad():
-                packed = pack_tail_weights(
-                    up.weight(), up.bias, [cv.weight() for cv in convs],
-                    [cv.bias for cv in convs], self.conv_post.weight(), self.conv_post.bias,
-                    kernel_sizes=c.resblock_kernel_sizes, dilations=c.resblock_dilation_sizes,
+        cached = self._stage_cache.get((i, compute_dtype))
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        c = self.config
+        last = i == len(c.upsample_rates) - 1
+        whole = c.upsample_rates[i] == c.upsample_kernel_sizes[i]
+        convs = [conv for j in range(len(c.resblock_kernel_sizes))
+                 for conv in getattr(self, f"res_{i}_{j}").convs()]
+        spec = dict(kernel_sizes=c.resblock_kernel_sizes, dilations=c.resblock_dilation_sizes,
                     compute_dtype=compute_dtype)
-            self._tail_cache = (key, packed)
-        return self._tail_cache[1]
+        up = getattr(self, f"up_{i}")
+        try:
+            with torch.no_grad():
+                kernels = [cv.weight() for cv in convs]
+                biases = [cv.bias.detach() for cv in convs]
+                if not whole:
+                    packed = pack_mrf_weights(kernels, biases, **spec)
+                elif last:
+                    packed = pack_tail_weights(up.weight(), up.bias.detach(), kernels, biases,
+                                               self.conv_post.weight(),
+                                               self.conv_post.bias.detach(), **spec)
+                else:
+                    packed = pack_tail_weights(up.weight(), up.bias.detach(), kernels, biases,
+                                               **spec)
+        except ValueError as e:
+            raise ValueError(f"generator stage {i} (C = {convs[0].v.shape[0]}, upsample "
+                             f"{c.upsample_rates[i]}/{c.upsample_kernel_sizes[i]}) cannot be "
+                             f"fused: {e}") from e
+        self._stage_cache[(i, compute_dtype)] = (key, packed)
+        return packed
+
+    def tail_weights(self, compute_dtype=None) -> TailWeights:
+        """The last stage's weights packed for the fused tail stage (`stage_weights`)."""
+        return self.stage_weights(len(self.config.upsample_rates) - 1, compute_dtype)
 
     def forward(self, mel):
         c = self.config

@@ -2,13 +2,21 @@
 `ttscube_tpu/models/hifigan_fused.py::generator_apply_fused` and
 `generator_apply_fused_train`.
 
-It reads the canonical `Generator` module's parameters. A stage whose width is in
-`fuse_channels`, with a kernel == stride upsample, runs as the fused tail stage
-(`ops/fused_tail.fused_tail_stage`, the kernel on the card) when it is the last stage;
-every other stage is stock PyTorch convs. Between convs the activations are kept in
-`storage_dtype` (bf16 when serving), and the non-fused conv_post and tanh run in fp32,
-as in the JAX function. The JAX function's fused middle stages (`fused_mrf1`) and
-polyphase options are not ported yet; a fusable middle stage runs as plain convs.
+It reads the canonical `Generator` module's parameters. The serving forward fuses the
+stages whose width is in `fuse_channels` exactly where the JAX function does:
+- a stage whose upsample has kernel == stride runs whole as one kernel: the last stage
+  with conv_post and tanh (`ops/fused_tail.fused_tail_stage`, kernel B1), a middle
+  stage without them (`fused_tail_stage_mid`, kernel B1-mid);
+- any other stage runs its upsample as a stock conv and its MRF as one kernel
+  (`ops/fused_mrf.fused_mrf1`, kernel B3), where the JAX function's condition on the
+  width and the length holds;
+- every other stage is stock PyTorch convs.
+On CUDA tensors the kernels run; on CPU tensors their plain PyTorch versions. A stage
+that the JAX function fuses and no kernel of the port takes raises; it never runs as
+stock convs. Between convs the activations are kept in `storage_dtype` (bf16 when
+serving); inside a fused stage they stay fp32, as in the TPU kernels. The non-fused
+conv_post and tanh run in fp32, as in the JAX function. Its polyphase option
+(`polyphase_channels`) is an exact layout transform and is not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +26,9 @@ import torch.nn.functional as F
 
 from ttscube_tpu_torch.models.hifigan import LRELU_SLOPE, Generator, HifiganConfig
 from ttscube_tpu_torch.ops.conv import conv1d, conv_transpose1d
-from ttscube_tpu_torch.ops.fused_tail import fused_tail_stage, fused_tail_stage_train
+from ttscube_tpu_torch.ops.fused_mrf import fused_mrf1
+from ttscube_tpu_torch.ops.fused_tail import (fused_tail_stage, fused_tail_stage_mid,
+                                              fused_tail_stage_train)
 
 
 def _st(x, storage_dtype):
@@ -75,7 +85,7 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
                           storage_dtype=None) -> torch.Tensor:
     """mel/cond (B, frames, num_mels) → audio (B, frames·total_upsample) fp32.
 
-    Unlike the JAX function, every batch size takes the fused tail: its cut-off at
+    Unlike the JAX function, every batch size takes the fused stages: its cut-off at
     B > 64 (`fuse_max_batch`) was measured on the TPU."""
     if storage_dtype is not None and compute_dtype is None:
         compute_dtype = storage_dtype
@@ -85,17 +95,27 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
     n_blocks = len(cfg.resblock_kernel_sizes)
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
         ch //= 2
+        if cfg.resblock == "1" and k == u and (u * ch) % 128 == 0 and ch in fuse_channels:
+            # the whole stage (upsample + MRF [+ conv_post + tanh]) as one kernel
+            w = gen.stage_weights(i, compute_dtype)
+            if i == n_stages - 1:
+                audio = fused_tail_stage(x.float().contiguous(), w)
+                return audio[:, : mel.shape[1] * cfg.total_upsample]
+            x = _st(fused_tail_stage_mid(x.float().contiguous(), w), storage_dtype)
+            continue
         up = getattr(gen, f"up_{i}")
-        blocks = [getattr(gen, f"res_{i}_{j}") for j in range(n_blocks)]
-        if (i == n_stages - 1 and cfg.resblock == "1" and k == u
-                and (u * ch) % 128 == 0 and ch in fuse_channels):
-            # the whole final stage (upsample + MRF + conv_post + tanh) as one kernel
-            audio = fused_tail_stage(x.float().contiguous(), gen.tail_weights(compute_dtype))
-            return audio[:, : mel.shape[1] * cfg.total_upsample]
         x = _upsample(x, up, u, k, compute_dtype, storage_dtype)
+        fold = 128 // ch if (ch < 128 and 128 % ch == 0) else 1
+        if (cfg.resblock == "1" and ch in fuse_channels
+                and ((fold >= 2 and ch * fold == 128 and x.shape[1] % fold == 0)
+                     or ch % 128 == 0)):
+            # the whole MRF (every chain and their mean) as one kernel
+            x = _st(fused_mrf1(x.float().contiguous(), gen.stage_weights(i, compute_dtype)),
+                    storage_dtype)
+            continue
         acc = None
-        for block in blocks:
-            h = _plain_resblock1(x, block, compute_dtype, storage_dtype)
+        for j in range(n_blocks):
+            h = _plain_resblock1(x, getattr(gen, f"res_{i}_{j}"), compute_dtype, storage_dtype)
             acc = h if acc is None else acc + h
         x = acc / n_blocks
     # final act/conv/tanh stay fp32, as in Generator

@@ -89,3 +89,26 @@ def load_all(names) -> list:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built first if needed."""
     return load_all([name])[0]
+
+
+_bound: set = set()  # (source, function) pairs already typed and checked
+
+
+def bind(source: str, fn: str, argtypes: list, limits: dict):
+    """The library built from `csrc/<source>.cu`, its function `fn` typed, and the
+    tiling limits it reports (`<fn>_limits`) checked against the wrapper's `limits`
+    (the first time only)."""
+    lib = load(source)
+    if (source, fn) not in _bound:
+        p = ctypes.c_void_p
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn + "_limits").argtypes = [p]
+        getattr(lib, fn + "_limits").restype = ctypes.c_int
+        vals = (ctypes.c_int * len(limits))()
+        getattr(lib, fn + "_limits")(ctypes.cast(vals, p))
+        if dict(zip(limits, vals)) != limits:
+            raise RuntimeError(f"{source}: the library's limits {list(vals)} for {fn} differ "
+                               f"from the wrapper's {limits}")
+        _bound.add((source, fn))
+    return lib
