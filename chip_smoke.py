@@ -6,8 +6,8 @@
 Phases, each printing one line with its seconds as it ends:
   device      the card (nvidia-smi name and power limit) and the CUDA version
   build       the kernel sources ttscube_tpu_torch/csrc/{fused_tail_stage,
-              fused_tail_stage_grad,fused_mrf_stage}.cu, by plain nvcc, in parallel, with
-              each one's ptxas register and spill line
+              fused_tail_stage_grad,fused_mrf_stage,narrow_conv}.cu, by plain nvcc, in
+              parallel, with each one's ptxas register and spill line
   kernel      B1 (the fused tail stage) against its plain PyTorch version at serving
               shapes, fp32 (TF32 off) and bf16 (limits below), raising on a miss
   kernel_mrf  B3 (a whole MRF stage) likewise, at the serving shapes of v1's stages 0
@@ -17,6 +17,12 @@ Phases, each printing one line with its seconds as it ends:
   kernel_grad B2 (the tail stage's backward) against autograd through the plain
               version, fp32 (TF32 off): at the training shape for four seeds, and at a
               ragged one on all blocks and on 3; two launches must give bit-equal grads
+  kernel_resblock  B4 (one ResBlock1) against its plain version at v1's four stages
+              and a ragged shape, fp32 (TF32 off) and bf16, with a witness on the CPU; two
+              launches bit-equal
+  kernel_narrow_conv  B5 (a bias-free narrow conv) against its plain version, fp32
+              (TF32 off, with a TF32 control) and bf16 operands, with a witness on the
+              CPU; two launches bit-equal
   serve       TTSCube at the full Cubegan v1 width from seeded random weights answers three
               requests; the B1 launch counter must rise by one per request; one more
               request in fp32 (TF32 off) must match the same model run on the CPU
@@ -29,8 +35,15 @@ Phases, each printing one line with its seconds as it ends:
               utterances built by CubeganCollate, five steps: finite losses, every
               partition moves, B1 and B2 launch once per step
   train_check one step on the card (TF32 off) against the same step on the CPU
-  times       each kernel's median time beside its plain version's and its bound, and
-              the train step's median
+  trainer     the port's trainer CLI (python -m ttscube_tpu_torch.scripts.train_cubegan)
+              at the full v1 width (fp32, --fused-tail-train) on a seeded corpus it
+              writes: 4 steps over 2 epochs, B1 and B2 once per step, every checkpoint
+              file written; --resume restores the step, parameters and moments bit-equal,
+              and the next step from them equals the live run's next step; the saved
+              weights, slimmed to {lang, gen}, serve through TTSCube(model_path, ...) on
+              the card as the same weights do through TTSCube.from_state_dicts
+  times       each kernel's median time beside its plain version's and its bound (and
+              for B5 F.conv1d's), and the train step's median
   profile     one served request, one with every stage fused and one train step under
               torch.profiler: device-busy share, top kernels
 
@@ -68,6 +81,10 @@ TOL_FP32 = 5e-5   # the repo's audio tolerance (tests/test_composed_parity.py)
 # 3e-5 on activations of unit scale), scaled to the activation's range
 TOL_MRF = 3e-5
 WIDE = (256, 128, 64, 32)  # fuse_channels with every HiFi-GAN v1 stage fused
+TOL_RES = 2e-5    # B4 in fp32: the JAX ResBlock test's atol (tests/test_pallas_resblock.py),
+# scaled to the output's range
+TOL_CONV = 1e-5   # B5: the JAX narrow-conv test's atol (tests/test_legacy_and_runtime.py),
+# scaled to the output's range; bf16 operands against the fp32 conv of the same values
 TOL_GRAD = 2e-4   # rtol = atol of the JAX package's grad tests (tests/test_pallas_resblock.py)
 TOL_LOSS = 1e-4   # relative, a train step's losses on the card against the CPU
 # At the training shape no fp32 VJP of the stage, the plain one included, meets TOL_GRAD
@@ -84,6 +101,9 @@ GRAD_SEEDS = (3000, 3001, 3002, 3003)
 FEW_GRAD_BLOCKS = 3
 TRAIN_STEPS = 5
 TRAIN_BATCH = 16
+TRAINER_UTTS = 8    # the trainer phase's corpus: 2 epochs of 2 steps at batch 4
+TRAINER_BATCH = 4
+TRAINER_STEPS = 4
 # bf16 operands: the limits are fractions of the precision floor, the distance between
 # the plain version in bf16 and in fp32 on the same inputs, measured in each case. The
 # kernel must sit at most BF16_RMS of the floor's RMS and BF16_MAX of its max from the
@@ -226,12 +246,14 @@ def rel_rms(a, b) -> float:
 
 def counters() -> dict:
     """Every kernel wrapper, by kernel name; each counts its launches in `.launches`."""
-    from ttscube_tpu_torch.ops import fused_mrf, fused_tail
+    from ttscube_tpu_torch.ops import fused_mrf, fused_resblock, fused_tail, narrow_conv
 
     return {"fused_tail_stage": fused_tail.fused_tail_stage,
             "fused_tail_stage_grad": fused_tail.fused_tail_stage_grad,
             "fused_mrf1": fused_mrf.fused_mrf1,
-            "fused_tail_stage_mid": fused_tail.fused_tail_stage_mid}
+            "fused_tail_stage_mid": fused_tail.fused_tail_stage_mid,
+            "fused_resblock1": fused_resblock.fused_resblock1,
+            "narrow_conv_blocked": narrow_conv.narrow_conv_blocked}
 
 
 def zero_counts() -> None:
@@ -268,13 +290,16 @@ def bf16_check(what: str, floor, err, ctl, wit) -> None:
                        f"(witness {wit})")
 
 
-def check_stage_kernel(what: str, kernel, plain, x, w32, w16) -> tuple:
-    """A stage kernel (B3 or B1-mid) against its plain version on x: fp32 (TF32 off)
-    within TOL_MRF scaled to the output's range, which the plain version on the CPU
+def check_stage_kernel(what: str, kernel, plain, x, w32, w16, tol: float = TOL_MRF,
+                       to_cpu=None) -> tuple:
+    """A stage kernel (B3, B1-mid or B4) against its plain version on x: fp32 (TF32
+    off) within `tol` scaled to the output's range, which the plain version on the CPU
     (the witness) must meet too; bf16 within the limits of `bf16_check`; two launches
-    bit-equal. Returns the kernel's max abs errors (fp32, bf16)."""
+    bit-equal. `to_cpu` moves weights to the CPU (packed weights by default). Returns
+    the kernel's max abs errors (fp32, bf16)."""
     import torch
 
+    to_cpu = to_cpu or (lambda w: moved(w, "cpu"))
     with no_tf32():
         got32, again, got16 = kernel(x, w32), kernel(x, w32), kernel(x, w16)
         want32, want16 = plain(x, w32), plain(x, w16)
@@ -283,11 +308,11 @@ def check_stage_kernel(what: str, kernel, plain, x, w32, w16) -> tuple:
         check(got.shape == want32.shape and bool(torch.isfinite(got).all()),
               f"{what}: shape {tuple(got.shape)} vs {tuple(want32.shape)}, or not finite")
     check(torch.equal(got32, again), f"{what}: two launches gave different outputs")
-    xc, w32c, w16c = x.cpu(), moved(w32, "cpu"), moved(w16, "cpu")
-    limit = TOL_MRF * max(1.0, float(want32.abs().max()))
+    xc, w32c, w16c = x.cpu(), to_cpu(w32), to_cpu(w16)
+    limit = tol * max(1.0, float(want32.abs().max()))
     err, wit = distance(got32, want32)[0], distance(plain(xc, w32c), want32)[0]
     print(f"  {what} fp32 max_abs_err={err:.3e} witness={wit:.3e} limit={limit:.3e} "
-          f"(TOL_MRF {TOL_MRF:.0e} x max(1, max|plain| = {float(want32.abs().max()):.3f})) "
+          f"({tol:.0e} x max(1, max|plain| = {float(want32.abs().max()):.3f})) "
           f"bit_equal_relaunch=True", flush=True)
     check(err <= limit, f"{what} fp32: max abs err {err:.3e} > {limit:.3e}")
     check(wit <= limit, f"{what} fp32: the plain version on the CPU misses the limit")
@@ -372,6 +397,71 @@ def param_distance(got: dict, want: dict, lr: float):
     return worst, over, far, total
 
 
+def resblock_args(gen, stage: int, chain: int, device):
+    """One ResBlock1 of the v1 generator `gen` (stage, chain) in the JAX function's
+    layouts: kernels (k, C_in, C_out) in call order, biases, k and dilations."""
+    import torch
+
+    c = gen.config
+    convs = getattr(gen, f"res_{stage}_{chain}").convs()
+    with torch.no_grad():
+        kernels = [cv.weight().detach().permute(2, 1, 0).contiguous().to(device)
+                   for cv in convs]
+        biases = [cv.bias.detach().to(device) for cv in convs]
+    return dict(kernels=kernels, biases=biases, kernel_size=c.resblock_kernel_sizes[chain],
+                dilations=tuple(c.resblock_dilation_sizes[chain]))
+
+
+def write_corpus(folder: Path, phones: list, n: int, seed: int) -> None:
+    """A seeded corpus in the JAX package's import format ({id}.{wav,mgc,pitch,json},
+    as tests/test_data.py's make_corpus writes it): n utterances of 60-240 frames, two
+    speakers, written with the port's own wav writer."""
+    import numpy as np
+
+    from ttscube_tpu_torch.utils.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    folder.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        frames = int(rng.integers(60, 241))
+        P = int(rng.integers(frames // 6, frames // 3))
+        cuts = np.sort(rng.choice(np.arange(1, frames), P - 1, replace=False))
+        durs = np.diff(np.concatenate([[0], cuts, [frames]]))
+        f2p = np.repeat(np.arange(P), durs).tolist()
+        meta = {"id": f"utt{i}", "orig_text": "x" * P,
+                "phones": [phones[int(k)] for k in rng.integers(0, len(phones), P)],
+                "words": ["w1", "w2"], "phon2word": [0] * (P // 2) + [1] * (P - P // 2),
+                "frame2phon": f2p, "speaker": f"spk{i % 2}",
+                "left_context": "left words here", "right_context": "right words"}
+        base = folder / f"utt{i}"
+        (folder / f"utt{i}.json").write_text(json.dumps(meta))
+        np.save(f"{base}.mgc.npy", rng.standard_normal((frames, 80)).astype(np.float32))
+        np.save(f"{base}.pitch.npy", (rng.uniform(80, 300, frames)
+                                      * (rng.random(frames) > 0.3)).astype(np.float32))
+        t = np.arange(frames * HOP) / 24000.0
+        audio = (0.3 * np.sin(2 * np.pi * rng.uniform(90, 250) * t)
+                 + 0.03 * rng.standard_normal(frames * HOP))
+        write_wav(f"{base}.wav", audio.astype(np.float32), 24000)
+
+
+def same_train_state(a, b) -> bool:
+    """Bit-equal parameters, buffers (the spectral u), step, and every optimizer
+    moment and count."""
+    import torch
+
+    sb = b.model.state_dict()
+    if a.step != b.step or any(not torch.equal(v, sb[k]) for k, v in
+                               a.model.state_dict().items()):
+        return False
+    for part, opt in a.optimizers.items():
+        for p, q in zip(opt.param_groups[0]["params"],
+                        b.optimizers[part].param_groups[0]["params"]):
+            sa, sq = opt.state.get(p, {}), b.optimizers[part].state.get(q, {})
+            if sa.keys() != sq.keys() or any(not torch.equal(sa[k], sq[k]) for k in sa):
+                return False
+    return True
+
+
 def device_profile(fn):
     """Run `fn` once under torch.profiler: (wall ms with the profiler on, device-busy
     ms, {kernel name: (ms, launches)}, device events)."""
@@ -430,10 +520,11 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # -- build --------------------------------------------------------------------
-    from ttscube_tpu_torch.ops import _build, fused_mrf, fused_tail
+    from ttscube_tpu_torch.ops import _build, fused_mrf, fused_tail, narrow_conv
 
     t0 = time.perf_counter()
-    sources = (fused_tail.KERNEL_SOURCE, fused_tail.GRAD_KERNEL_SOURCE, fused_mrf.KERNEL_SOURCE)
+    sources = (fused_tail.KERNEL_SOURCE, fused_tail.GRAD_KERNEL_SOURCE, fused_mrf.KERNEL_SOURCE,
+               narrow_conv.KERNEL_SOURCE)
     _build.load_all(sources)
     for source in sources:
         for line in _build.nvcc_log(source).splitlines():
@@ -574,6 +665,79 @@ def main() -> int:
           "TF32 control passed")
     say("kernel_grad", t0, checks=len(grad_errs))
 
+    # -- kernel_resblock ----------------------------------------------------------------
+    from ttscube_tpu_torch.ops import fused_resblock
+
+    t0 = time.perf_counter()
+    res_errs = {}
+    res_kernel = lambda x, a: fused_resblock.fused_resblock1(x, **a)
+    res_plain = lambda x, a: fused_resblock.fused_resblock1_plain(x, **a)
+    res_cpu = lambda a: dict(a, kernels=[t.cpu() for t in a["kernels"]],
+                             biases=[t.cpu() for t in a["biases"]])
+    # v1's four stages at 256 frames (stage i, chain j: k = 3, 7, 11, 11) and a ragged T
+    for label, batch, t_len, stage, chain in (
+            ("stage0", 1, 1280, 0, 0), ("stage1", 1, 3840, 1, 1), ("stage2", 1, 15360, 2, 2),
+            ("stage3", 1, 61440, 3, 2), ("ragged", 2, 7696, 3, 2)):
+        a = resblock_args(gen, stage, chain, dev)
+        C = a["kernels"][0].shape[1]
+        g = torch.Generator().manual_seed(t_len)
+        x = torch.randn(batch, t_len, C, generator=g).to(dev)
+        res_errs[label] = check_stage_kernel(
+            f"fused_resblock1 {label} B={batch} T={t_len} C={C} k={a['kernel_size']}",
+            res_kernel, res_plain, x, dict(a, compute_dtype=None),
+            dict(a, compute_dtype=torch.bfloat16), tol=TOL_RES, to_cpu=res_cpu)
+        grids["resblock " + label] = fused_resblock.fused_resblock1.last_grid
+    print("  fused_resblock1 thread blocks per launch: " + ", ".join(
+        f"{k[9:]} {v}" for k, v in grids.items() if k.startswith("resblock ")), flush=True)
+    say("kernel_resblock", t0, checks=2 * len(res_errs),
+        launches=fused_resblock.fused_resblock1.launches)
+
+    # -- kernel_narrow_conv -------------------------------------------------------------
+    t0 = time.perf_counter()
+    conv_errs = {}
+    nconv, nplain = narrow_conv.narrow_conv_blocked, narrow_conv.narrow_conv_plain
+    # the shape of the TPU kernel's docstring, and others the kernel takes (C = 256
+    # walks input-channel chunks; an even k pads (k - 1)//2 on the left)
+    for label, (batch, t_len, C, k) in (("docstring", (8, 122880, 32, 11)),
+                                        ("c64", (2, 1000, 64, 7)), ("c256", (1, 4096, 256, 3)),
+                                        ("even_k", (2, 3000, 32, 4))):
+        g = torch.Generator().manual_seed(t_len + k)
+        x = torch.randn(batch, t_len, C, generator=g).to(dev)
+        w = (torch.randn(k, C, C, generator=g) / math.sqrt(k * C)).to(dev)
+        xb, wb = x.bfloat16(), w.bfloat16()
+        with no_tf32():
+            got, again, got16 = nconv(x, w), nconv(x, w), nconv(xb, wb)
+            want, want16 = nplain(x, w), nplain(xb, wb)
+            torch.cuda.synchronize()
+        tf32 = nplain(x, w)  # PyTorch's default: TF32 convs
+        wit, wit16 = nplain(x.cpu(), w.cpu()), nplain(xb.cpu(), wb.cpu())
+        torch.cuda.synchronize()
+        check(got.shape == want.shape == (batch, t_len, C) and got16.dtype == torch.float32
+              and bool(torch.isfinite(got).all()) and bool(torch.isfinite(got16).all()),
+              f"narrow_conv {label}: shape {tuple(got.shape)} or not finite")
+        check(torch.equal(got, again), f"narrow_conv {label}: two launches differ")
+        case = f"narrow_conv {label} B={batch} T={t_len} C={C} k={k}"
+        for mode, out, ref, witness, control in (("fp32", got, want, wit, got16),
+                                                 ("bf16", got16, want16, wit16, got)):
+            limit = TOL_CONV * max(1.0, float(ref.abs().max()))
+            err, w_err, c_err = (distance(a, ref)[0] for a in (out, witness, control))
+            print(f"  {case} {mode}: max_abs_err={err:.3e} witness={w_err:.3e} "
+                  f"control={c_err:.3e} limit={limit:.3e}" + (
+                      f" tf32={distance(tf32, ref)[0]:.3e}" if mode == "fp32" else ""),
+                  flush=True)
+            check(err <= limit, f"{case} {mode}: max abs err {err:.3e} > {limit:.3e}")
+            check(w_err <= limit, f"{case} {mode}: the CPU witness misses the limit")
+            check(c_err > limit, f"{case} {mode}: the control (the other operand type) "
+                                 "passed")
+            conv_errs[(label, mode)] = err
+        grids["conv " + label] = narrow_conv.narrow_conv_blocked.last_grid
+    print("  narrow_conv thread blocks per launch: " + ", ".join(
+        f"{k[5:]} {v}" for k, v in grids.items() if k.startswith("conv ")), flush=True)
+    say("kernel_narrow_conv", t0, checks=len(conv_errs),
+        launches=narrow_conv.narrow_conv_blocked.launches)
+    phase_launches = {"fused_resblock1": fused_resblock.fused_resblock1.launches,
+                      "narrow_conv_blocked": narrow_conv.narrow_conv_blocked.launches}
+
     # -- serve --------------------------------------------------------------------
     from ttscube_tpu_torch.api import TTSCube, config_from_yaml, phonemizer_config
     from ttscube_tpu_torch.data.encodings import CubeganEncodings, PhonemizerEncodings
@@ -608,8 +772,9 @@ def main() -> int:
               f"ms={ms:.1f} peak={int(abs(pcm.astype('int32')).max())}", flush=True)
     serve_counts = read_counts()
     main_launches = serve_counts["fused_tail_stage"]
-    check(serve_counts == dict(read_counts(), fused_tail_stage=len(REQUESTS), fused_mrf1=0,
-                               fused_tail_stage_mid=0, fused_tail_stage_grad=0),
+    check(serve_counts == dict(fused_tail_stage=len(REQUESTS), fused_mrf1=0,
+                               fused_tail_stage_mid=0, fused_tail_stage_grad=0,
+                               fused_resblock1=0, narrow_conv_blocked=0),
           f"launches for {len(REQUESTS)} requests: {serve_counts}")
     check(len(set(served)) == len(served), "the requests were meant to differ in length")
 
@@ -635,7 +800,7 @@ def main() -> int:
     torch.cuda.synchronize()
     zero_counts()
     per_request = dict(fused_tail_stage=1, fused_tail_stage_grad=0, fused_mrf1=2,
-                       fused_tail_stage_mid=1)
+                       fused_tail_stage_mid=1, fused_resblock1=0, narrow_conv_blocked=0)
     for text, frames in zip(REQUESTS, served):
         before = read_counts()
         t1 = time.perf_counter()
@@ -732,8 +897,11 @@ def main() -> int:
               "train step: B1 and B2 did not launch once each")
         print(f"  train step {step} B={TRAIN_BATCH} ms={step_ms[-1]:.1f} "
               + " ".join(f"{k}={v:.4f}" for k, v in sorted(met.items())), flush=True)
-    train_launches = (fused_tail.fused_tail_stage.launches,
-                      fused_tail.fused_tail_stage_grad.launches)
+    train_counts = read_counts()
+    train_launches = (train_counts["fused_tail_stage"], train_counts["fused_tail_stage_grad"])
+    check(train_counts == dict(fused_tail_stage=TRAIN_STEPS, fused_tail_stage_grad=TRAIN_STEPS,
+                               fused_mrf1=0, fused_tail_stage_mid=0, fused_resblock1=0,
+                               narrow_conv_blocked=0), f"train: launches {train_counts}")
     for top in tops:
         check(not torch.equal(firsts[top].detach(), before[top]), f"train: {top} did not move")
     say("train", t0, steps=TRAIN_STEPS, launches_b1=train_launches[0],
@@ -767,6 +935,141 @@ def main() -> int:
     check(worst_loss <= TOL_LOSS, f"train_check: losses differ by {worst_loss:.3e} relative")
     check(over == 0 and far <= 1e-3 * total, "train_check: parameters differ")
     say("train_check", t0)
+
+    # -- trainer ----------------------------------------------------------------------
+    import os
+    import shutil
+    import tempfile
+
+    from ttscube_tpu_torch.data.collate import CubeganCollate
+    from ttscube_tpu_torch.data.datasets import CubeganDataset
+    from ttscube_tpu_torch.scripts import train_cubegan
+    from ttscube_tpu_torch.utils import checkpoint as ckpt
+    from ttscube_tpu_torch.convert import read_msgpack
+    from ttscube_tpu_torch.utils.serialization import msgpack_serialize
+
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    corpus = work / "corpus"
+    write_corpus(corpus, list(enc.phon2int), TRAINER_UTTS, seed=SEED + 5)
+    base = str(work / "out" / "cubegan")
+    argv = ["--train-folder", str(corpus), "--dev-folder", str(corpus), "--output-base", base,
+            "--batch-size", str(TRAINER_BATCH), "--max-steps", str(TRAINER_STEPS),
+            "--max-epochs", "2", "--epoch-generation", "1", "--generation-limit", "2",
+            "--fused-tail-train"]
+    trainer_ms, rises = [], []
+    real_step = tcg.train_step
+
+    def counted_step(st, batch, starts=None):
+        """The CLI's train step, timed (host clock to a synchronize) and its B1 and B2
+        launches counted."""
+        before = read_counts()
+        t1 = time.perf_counter()
+        out = real_step(st, batch, starts)
+        torch.cuda.synchronize()
+        trainer_ms.append((time.perf_counter() - t1) * 1e3)
+        after = read_counts()
+        rises.append(tuple(after[n] - before[n] for n in ("fused_tail_stage",
+                                                         "fused_tail_stage_grad")))
+        return out
+
+    cwd = os.getcwd()
+    tcg.train_step = counted_step
+    os.chdir(work)  # the CLI synthesizes the devset into generated_files/free/ here
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        t1 = time.perf_counter()
+        live = train_cubegan.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t1
+        trainer_counts = read_counts()
+    finally:
+        tcg.train_step = real_step
+        os.chdir(cwd)
+    val_b1 = trainer_counts["fused_tail_stage"] - TRAINER_STEPS
+    print(f"  trainer CLI: {cli_s:.1f} s for {live.step} steps over 2 epochs (B="
+          f"{TRAINER_BATCH}, {TRAINER_UTTS} utterances of 60-240 frames, fp32, fused tail "
+          f"training), launches {trainer_counts} (B1 in validation: {val_b1})", flush=True)
+    check(live.step == TRAINER_STEPS, f"trainer: {live.step} steps, want {TRAINER_STEPS}")
+    check(rises == [(1, 1)] * TRAINER_STEPS, f"trainer: B1, B2 launches per step {rises}")
+    check(trainer_counts["fused_tail_stage_grad"] == TRAINER_STEPS and val_b1 > 0
+          and trainer_counts["fused_resblock1"] == trainer_counts["narrow_conv_blocked"]
+          == trainer_counts["fused_mrf1"] == trainer_counts["fused_tail_stage_mid"] == 0,
+          f"trainer launches {trainer_counts}")
+    files = {ext: os.path.getsize(base + ext)
+             for ext in (".best", ".last", ".opt.last", ".yaml", ".encodings")
+             if os.path.exists(base + ext)}
+    check(len(files) == 5, f"trainer: files written {sorted(files)}")
+    wavs = sorted(os.listdir(work / "generated_files" / "free"))
+    check(len(wavs) == 2, f"trainer: devset synthesis wrote {wavs}")
+    trained = {k: v.detach().cpu().clone() for k, v in live.model.state_dict().items()}
+    t1 = time.perf_counter()
+    ckpt.save_train_state(str(work / "timed.opt.last"), live)
+    save_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    resumed = train_cubegan.main(argv + ["--resume", "--max-epochs", "0"])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t1
+    check(resumed.step == live.step and same_train_state(live, resumed),
+          "trainer: --resume did not restore the step, parameters and moments bit-equal")
+    # the next step from the resumed state against the next step from the live one
+    ds = CubeganDataset(str(corpus))
+    tenc = CubeganEncodings(base + ".encodings")
+    nb = tcg.batch_to_torch(CubeganCollate(tenc)([ds[i] for i in range(TRAINER_BATCH)]), dev)
+    with no_tf32():  # fp32 in full: under TF32 the D step's rounding moves the G losses
+        _, m_live = tcg.train_step(live, nb)
+        _, m_back = tcg.train_step(resumed, nb)
+    worst_loss = max(abs(m_back[k].item() - v.item()) / abs(v.item()) for k, v in m_live.items())
+    worst_p, over, far, total = param_distance(
+        {n: p.detach().cpu() for n, p in resumed.model.named_parameters()},
+        {n: p.detach().cpu() for n, p in live.model.named_parameters()}, live.model.config.lr)
+    print(f"  trainer resume: step {resumed.step}, state bit-equal; next step resumed vs "
+          f"live: max_rel_loss_diff={worst_loss:.3e} tol={TOL_LOSS:.0e}, params max "
+          f"{worst_p / live.model.config.lr:.4f} lr, {over} beyond 2 lr + rounding, {far} of "
+          f"{total} beyond 0.01 lr", flush=True)
+    check(worst_loss <= TOL_LOSS and over == 0 and far <= 1e-3 * total,
+          "trainer: the resumed state's next step differs from the live one's")
+    del live, resumed, nb
+    # serve the saved weights from files on the card (C5), against the same weights
+    # built from state dicts
+    tree = read_msgpack(base + ".last")
+    with open(base + ".model", "wb") as f:  # as scripts/export_model.py slims `.last`
+        f.write(msgpack_serialize({k: tree[k] for k in ("lang", "gen")}))
+    pbase = str(work / "out" / "phonemizer")
+    pmodel = init_random(Phonemizer(phonemizer_config(penc)), SEED + 1)
+    ckpt.save_params(pbase + ".model", pmodel)
+    penc.save(pbase + ".encodings")
+    files[".model"] = os.path.getsize(base + ".model")
+    t1 = time.perf_counter()
+    from_files = TTSCube(base, pbase)  # the card: the default device
+    load_s = time.perf_counter() - t1
+    scfg = config_from_yaml(ckpt.load_config(base), tenc)
+    sstate = Cubegan(scfg).state_dict()
+    check(all(k in trained for k in sstate if k.startswith(("lang.", "gen."))),
+          "trainer: the serving model's weights are not all in the trained model")
+    sstate.update({k: trained[k] for k in sstate if k in trained})
+    from_sd = TTSCube.from_state_dicts(scfg, tenc, penc, sstate, pmodel.state_dict(),
+                                       device="cuda")
+    zero_counts()
+    a_files, n_files = from_files.synthesize(REQUESTS[0], speaker="spk0")
+    served_b1 = read_counts()["fused_tail_stage"]
+    a_sd, n_sd = from_sd.synthesize(REQUESTS[0], speaker="spk0")
+    err = float(abs(a_files - a_sd).max())
+    print(f"  trainer serve from files: TTSCube(model_path, phonemizer_path) on "
+          f"{from_files.device} in {load_s:.2f} s; frames={n_files} B1 launches={served_b1} "
+          f"max_abs_err vs from_state_dicts={err:.3e} tol={TOL_FP32:.0e}", flush=True)
+    check(from_files.device.type == "cuda" and served_b1 == 1 and n_files == n_sd
+          and err <= TOL_FP32 and bool(np.isfinite(a_files).all()),
+          "trainer: serving from the saved files differs from the same weights")
+    print(f"  trainer step ms (host clock to a synchronize): "
+          f"{', '.join(f'{v:.1f}' for v in trainer_ms)}; .opt.last save {save_s:.2f} s, "
+          f"CLI --resume {resume_s:.2f} s; files (bytes): "
+          + ", ".join(f"{k} {v}" for k, v in files.items()), flush=True)
+    del from_files, from_sd
+    shutil.rmtree(work)
+    say("trainer", t0, steps=TRAINER_STEPS, launches_b1=trainer_counts["fused_tail_stage"],
+        launches_b2=trainer_counts["fused_tail_stage_grad"])
 
     # -- times --------------------------------------------------------------------
     t0 = time.perf_counter()
@@ -859,6 +1162,56 @@ def main() -> int:
                   f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) achieved="
                   f"{flops / ms / 1e9:.2f} TFLOP/s library_ms=none (no single PyTorch call "
                   f"computes this stage)", flush=True)
+    # B4 at v1's stage 3 (one ResBlock1 of the k = 11 chain at 256 frames), B5 at the
+    # shape of the TPU kernel's docstring: each kernel against its plain version, in
+    # turns; B5 also against F.conv1d (cuDNN) on the same values laid out (B, C, T),
+    # its library yardstick; bf16 under the default TF32 settings, fp32 in full fp32
+    a = resblock_args(gen, 3, 2, dev)
+    x = torch.randn(1, 61440, 32, generator=torch.Generator().manual_seed(61440)).to(dev)
+    res_rows = {}
+    for mode, cd, peak in (("bf16", torch.bfloat16, PEAK_BF16), ("fp32", None, PEAK_FP32)):
+        kernel = lambda: fused_resblock.fused_resblock1(x, **a, compute_dtype=cd)
+        plain = lambda: fused_resblock.fused_resblock1_plain(x, **a, compute_dtype=cd)
+        with no_tf32() if cd is None else contextlib.nullcontext():
+            p1, k1, k2, p2 = (cuda_times(f, 10) for f in (plain, kernel, kernel, plain))
+        ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+        flops = fused_resblock.resblock_flops(1, 61440, 32, a["kernel_size"], a["dilations"])
+        nbytes = 4 * (2 * x.numel() + sum(t.numel() for t in a["kernels"] + a["biases"]))
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        res_rows[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+                              bound_by="operations" if t_ops >= t_bytes else "bytes")
+        print(f"  fused_resblock1 {mode} B=1 T=61440 C=32 k=11 ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={max(t_ops, t_bytes):.4f} ({flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB) achieved={flops / ms / 1e9:.2f} TFLOP/s library_ms=none "
+              f"(no single PyTorch call computes a ResBlock1)", flush=True)
+    B5, T5, C5, K5 = 8, 122880, 32, 11
+    g = torch.Generator().manual_seed(T5)
+    x32 = torch.randn(B5, T5, C5, generator=g).to(dev)
+    w32c = (torch.randn(K5, C5, C5, generator=g) / math.sqrt(K5 * C5)).to(dev)
+    conv_rows = {}
+    for mode, dt, peak in (("fp32", torch.float32, PEAK_FP32), ("bf16", torch.bfloat16, PEAK_BF16)):
+        xx, ww = x32.to(dt), w32c.to(dt)
+        x_nct, w_oik = xx.transpose(1, 2).contiguous(), ww.permute(2, 1, 0).contiguous()
+        kernel = lambda: narrow_conv.narrow_conv_blocked(xx, ww)
+        plain = lambda: narrow_conv.narrow_conv_plain(xx, ww)
+        library = lambda: torch.nn.functional.conv1d(x_nct, w_oik, padding=(K5 - 1) // 2)
+        with no_tf32() if mode == "fp32" else contextlib.nullcontext():
+            p1, l1, k1, k2, l2, p2 = (cuda_times(f, 10) for f in
+                                      (plain, library, kernel, kernel, library, plain))
+        ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+        library_ms = statistics.median(l1 + l2)
+        flops = narrow_conv.narrow_conv_flops(B5, T5, C5, K5)
+        # x and w read once in their own type, the fp32 output written once
+        nbytes = xx.element_size() * (xx.numel() + ww.numel()) + 4 * xx.numel()
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        conv_rows[mode] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                               bound_ms=max(t_ops, t_bytes),
+                               bound_by="operations" if t_ops >= t_bytes else "bytes")
+        print(f"  narrow_conv {mode} B={B5} T={T5} C={C5} k={K5} ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} library_ms={library_ms:.4f} (F.conv1d, {mode}) bound_ms="
+              f"{max(t_ops, t_bytes):.4f} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
+              f"achieved={flops / ms / 1e9:.2f} TFLOP/s", flush=True)
+    del x32, w32c, xx, ww, x_nct, w_oik
     print(f"  train step B={TRAIN_BATCH} median_ms={statistics.median(step_ms[1:]):.1f} "
           f"(steps 2-{TRAIN_STEPS}, host clock, default TF32) first_ms={step_ms[0]:.1f}",
           flush=True)
@@ -875,11 +1228,17 @@ def main() -> int:
     say("profile", t0)
 
     serving = rows[0]
+    # launches on the main paths (serve, serve_wide, train, trainer), each counted from
+    # zero just before its path ran
+    main_counts = {n: serve_counts[n] + wide_counts[n] + train_counts[n] + trainer_counts[n]
+                   for n in serve_counts}
+    print(f"  main-path launches: {main_counts}; launches in the kernel phases: "
+          f"{phase_launches}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "fused_tail_stage", "route": "cuda",
         "source": "ttscube_tpu_torch/csrc/fused_tail_stage.cu",
         "replaces": "ttscube_tpu/ops/pallas_resblock.py:295",
-        "launches": main_launches + wide_counts["fused_tail_stage"] + train_launches[0],
+        "launches": main_counts["fused_tail_stage"],
         "max_abs_err": errs[("bf16", 1, 256)],
         "ms": serving["ms"], "plain_ms": serving["plain_ms"],
         "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"],
@@ -887,7 +1246,7 @@ def main() -> int:
         "name": "fused_tail_stage_grad", "route": "cuda",
         "source": "ttscube_tpu_torch/csrc/fused_tail_stage_grad.cu",
         "replaces": "ttscube_tpu/ops/pallas_resblock.py:664",
-        "launches": train_launches[1],
+        "launches": main_counts["fused_tail_stage_grad"],
         "max_abs_err": max(v for k, v in grad_errs.items() if k[1] == 3000),
         "ms": grad_row["ms"], "plain_ms": grad_row["plain_ms"],
         "bound_ms": grad_row["bound_ms"], "bound_by": grad_row["bound_by"],
@@ -895,15 +1254,27 @@ def main() -> int:
         "name": "fused_mrf1", "route": "cuda",
         "source": "ttscube_tpu_torch/csrc/fused_mrf_stage.cu",
         "replaces": "ttscube_tpu/ops/pallas_resblock.py:754",
-        "launches": wide_counts["fused_mrf1"],
+        "launches": main_counts["fused_mrf1"],
         "max_abs_err": mrf_errs["stage0"][1],
         **stage_rows[("fused_mrf1 stage0", "bf16")], "library_ms": None}, {
         "name": "fused_tail_stage_mid", "route": "cuda",
         "source": "ttscube_tpu_torch/csrc/fused_mrf_stage.cu",
         "replaces": "ttscube_tpu/ops/pallas_resblock.py:295",
-        "launches": wide_counts["fused_tail_stage_mid"],
+        "launches": main_counts["fused_tail_stage_mid"],
         "max_abs_err": mid_errs["stage2"][1],
-        **stage_rows[("fused_tail_stage_mid stage2", "bf16")], "library_ms": None}]}),
+        **stage_rows[("fused_tail_stage_mid stage2", "bf16")], "library_ms": None}, {
+        "name": "fused_resblock1", "route": "cuda",
+        "source": "ttscube_tpu_torch/csrc/fused_mrf_stage.cu",
+        "replaces": "ttscube_tpu/ops/pallas_resblock.py:110",
+        "launches": main_counts["fused_resblock1"],
+        "phase_launches": phase_launches["fused_resblock1"],
+        "max_abs_err": res_errs["stage3"][1], **res_rows["bf16"], "library_ms": None}, {
+        "name": "narrow_conv_blocked", "route": "cuda",
+        "source": "ttscube_tpu_torch/csrc/narrow_conv.cu",
+        "replaces": "ttscube_tpu/ops/pallas_conv.py:46",
+        "launches": main_counts["narrow_conv_blocked"],
+        "phase_launches": phase_launches["narrow_conv_blocked"],
+        "max_abs_err": conv_errs[("docstring", "fp32")], **conv_rows["fp32"]}]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

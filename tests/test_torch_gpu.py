@@ -362,3 +362,157 @@ def test_wide_serving_generator_matches_module_path_on_the_card(cuda):
     assert [c.launches - b for c, b in zip(counters, before)] == [2, 1, 1]
     assert got.shape == want.shape == (1, 37 * 240)
     assert (got - want).abs().max().item() <= 5e-5
+
+
+# -- B4, B5 and the trainer ---------------------------------------------------------------
+
+RESBLOCK_CASES = [  # (B, T, C, k, dilations): the JAX test's shapes, then v1's stages
+    (2, 2048, 32, 11, (1, 3, 5)), (2, 8192, 32, 3, (1, 3, 5)), (2, 1920, 64, 7, (1, 3, 5)),
+    (2, 1024, 128, 11, (1, 3)), (2, 7696, 32, 11, (1, 3, 5)),
+    (1, 1280, 256, 3, (1, 3, 5)), (1, 3840, 128, 7, (1, 3, 5)), (1, 15360, 64, 11, (1, 3, 5)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,C,k,dils", RESBLOCK_CASES)
+def test_fused_resblock_kernel_matches_plain(cuda, B, T, C, k, dils):
+    """B4 against its plain version: fp32 (TF32 off) within 2e-5 (the JAX test's atol)
+    scaled to the output's range, bf16 by the floor scheme, two launches bit-equal, one
+    launch counted per call."""
+    from ttscube_tpu_torch.ops import fused_resblock
+
+    rng = np.random.default_rng(T + C + k)
+    n = lambda scale, *s: torch.from_numpy(
+        (scale * rng.standard_normal(s)).astype(np.float32)).to(cuda)
+    x = n(1.0, B, T, C)
+    kernels = [n(0.3 / np.sqrt(k * C), k, C, C) for _ in range(2 * len(dils))]
+    biases = [n(0.1, C) for _ in kernels]
+    run = lambda f, cd=None: f(x, kernels, biases, kernel_size=k, dilations=dils,
+                               compute_dtype=cd)
+    before = fused_resblock.fused_resblock1.launches
+    got32, again = run(fused_resblock.fused_resblock1), run(fused_resblock.fused_resblock1)
+    got16 = run(fused_resblock.fused_resblock1, torch.bfloat16)
+    want32 = run(fused_resblock.fused_resblock1_plain)
+    want16 = run(fused_resblock.fused_resblock1_plain, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fused_resblock.fused_resblock1.launches == before + 3
+    assert got32.shape == want32.shape == (B, T, C) and got32.dtype == torch.float32
+    assert torch.equal(got32, again)
+    assert (got32 - want32).abs().max().item() <= 2e-5 * max(1.0, want32.abs().max().item())
+    _check_bf16(got16, want16, got32, want32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,C,k", [(2, 1000, 64, 7), (1, 4096, 256, 3), (2, 77, 32, 4),
+                                     (1, 500, 96, 15), (1, 300, 256, 15)])
+def test_narrow_conv_kernel_matches_plain(cuda, B, T, C, k):
+    """B5 against `F.conv1d` over the same operands: fp32 (TF32 off) within 1e-5 (the
+    JAX test's atol) scaled to the output's range; bf16 operands against the plain fp32
+    conv of the same bf16-rounded values (products exact in fp32) within the same;
+    two launches bit-equal. C = 256 at k = 15 walks input-channel chunks."""
+    from ttscube_tpu_torch.ops import narrow_conv
+
+    rng = np.random.default_rng(T + C + k)
+    x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.standard_normal((k, C, C)) / np.sqrt(k * C))
+                         .astype(np.float32)).to(cuda)
+    before = narrow_conv.narrow_conv_blocked.launches
+    got, again = narrow_conv.narrow_conv_blocked(x, w), narrow_conv.narrow_conv_blocked(x, w)
+    got16 = narrow_conv.narrow_conv_blocked(x.bfloat16(), w.bfloat16())
+    want, want16 = (narrow_conv.narrow_conv_plain(x, w),
+                    narrow_conv.narrow_conv_plain(x.bfloat16(), w.bfloat16()))
+    torch.cuda.synchronize()
+    assert narrow_conv.narrow_conv_blocked.launches == before + 3
+    assert got.shape == (B, T, C) and got16.dtype == torch.float32
+    assert torch.equal(got, again)
+    for a, b in ((got, want), (got16, want16)):
+        assert (a - b).abs().max().item() <= 1e-5 * max(1.0, b.abs().max().item())
+    assert (got16 - want).abs().max().item() > 1e-3  # the operands really were rounded
+
+
+@pytest.mark.gpu
+def test_b4_b5_refuse_what_they_cannot_run(cuda):
+    from ttscube_tpu_torch.ops import fused_resblock, narrow_conv
+
+    x = torch.zeros(1, 64, 32, device=cuda)
+    w = [torch.zeros(3, 32, 32, device=cuda)] * 2
+    b = [torch.zeros(32, device=cuda)] * 2
+    with pytest.raises(ValueError, match="fp32"):
+        fused_resblock.fused_resblock1(x.double(), w, b, kernel_size=3, dilations=(1,))
+    with pytest.raises(ValueError, match="device"):
+        fused_resblock.fused_resblock1(x, [t.cpu() for t in w], [t.cpu() for t in b],
+                                       kernel_size=3, dilations=(1,))
+    with pytest.raises(ValueError, match="device"):
+        narrow_conv.narrow_conv_blocked(x, w[0].cpu())
+    with pytest.raises(ValueError, match="up to 256"):
+        narrow_conv.narrow_conv_blocked(torch.zeros(1, 8, 288, device=cuda),
+                                        torch.zeros(3, 288, 288, device=cuda))
+
+
+@pytest.mark.gpu
+def test_trainer_resumes_on_the_card(cuda, tmp_path):
+    """The port's loop on the card (a small config, fp32, fused tail training): the
+    `.opt.last` it writes restores parameters, u, moments and step bit-equal into a
+    fresh state; the next step from the restored state equals the next step from the
+    live one (losses 1e-4 relative)."""
+    import copy
+    import json
+
+    from ttscube_tpu_torch.convert import init_random
+    from ttscube_tpu_torch.data.collate import CubeganCollate
+    from ttscube_tpu_torch.data.datasets import CubeganDataset
+    from ttscube_tpu_torch.data.encodings import CubeganEncodings
+    from ttscube_tpu_torch.models import cubegan as tcg
+    from ttscube_tpu_torch.models.hifigan import HifiganConfig
+    from ttscube_tpu_torch.models.languasito import LanguasitoConfig
+    from ttscube_tpu_torch.train.loop import train
+    from ttscube_tpu_torch.utils.checkpoint import load_train_state
+    from ttscube_tpu_torch.utils.wavio import write_wav
+
+    rng = np.random.default_rng(0)
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    for i in range(4):  # tests/test_data.py's corpus format
+        durs = rng.integers(2, 6, 6)
+        f2p = [p for p, d in enumerate(durs) for _ in range(d)]
+        F = len(f2p)
+        meta = {"id": f"utt{i}", "orig_text": "xxxxxx", "phones": list("abcdea"),
+                "words": ["w1", "w2"], "phon2word": [0, 0, 0, 1, 1, 1], "frame2phon": f2p,
+                "speaker": f"spk{i % 2}"}
+        (corpus / f"utt{i}.json").write_text(json.dumps(meta))
+        np.save(corpus / f"utt{i}.mgc.npy", rng.standard_normal((F, 80)).astype(np.float32))
+        np.save(corpus / f"utt{i}.pitch.npy", rng.uniform(0, 300, F).astype(np.float32))
+        write_wav(str(corpus / f"utt{i}.wav"), rng.uniform(-0.3, 0.3, F * 240), 24000)
+    ds = CubeganDataset(str(corpus))
+    enc = CubeganEncodings()
+    enc.compute(ds)
+    cfg = tcg.CubeganConfig(
+        languasito=LanguasitoConfig(num_phones=30, num_speakers=3, max_pitch=400,
+                                    max_duration=100),
+        hifigan=HifiganConfig(upsample_rates=(5, 3, 4, 4), upsample_kernel_sizes=(16, 16, 4, 4),
+                              upsample_initial_channel=512, resblock_kernel_sizes=(3,),
+                              resblock_dilation_sizes=((1, 3),), fused_tail_train=True),
+        mpd_channels=(8, 16), msd_width=8)
+    fresh = lambda seed: tcg.create_train_state(
+        init_random(tcg.Cubegan(cfg, train=True), seed).to(cuda))
+    collate = CubeganCollate(enc, min_frames=60, bucket_frames=60, bucket_phones=16)
+    base = str(tmp_path / "m" / "cubegan")
+    live = train(state=fresh(0), train_step=tcg.train_step, val_step=tcg.val_step,
+                 trainset=ds, devset=ds, collate=collate, batch_size=2, output_base=base,
+                 selection_metric="loss_mel", device=cuda, max_steps=2)
+    restored = load_train_state(base + ".opt.last", fresh(1))
+    assert restored.step == live.step == 2
+    sd = restored.model.state_dict()
+    assert all(torch.equal(v, sd[k]) for k, v in live.model.state_dict().items())
+    for part, opt in live.optimizers.items():
+        for p, q in zip(opt.param_groups[0]["params"],
+                        restored.optimizers[part].param_groups[0]["params"]):
+            assert torch.equal(opt.state[p]["exp_avg"],
+                               restored.optimizers[part].state[q]["exp_avg"])
+            assert torch.equal(opt.state[p]["exp_avg_sq"],
+                               restored.optimizers[part].state[q]["exp_avg_sq"])
+    batch = tcg.batch_to_torch(collate([ds[0], ds[1]]), cuda)
+    _, m_live = tcg.train_step(copy.deepcopy(live), batch)
+    _, m_back = tcg.train_step(restored, batch)
+    for k, v in m_live.items():
+        assert abs(m_back[k].item() - v.item()) <= 1e-4 * abs(v.item()), k

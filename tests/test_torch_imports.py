@@ -1,8 +1,8 @@
 """The port runs on a machine that has PyTorch and numpy but no JAX, flax, optax, yaml
 or msgpack. Every module of `ttscube_tpu_torch/` and `chip_smoke.py` is parsed here:
-none may import JAX, flax, optax or the JAX package `ttscube_tpu` anywhere, and none
-may import yaml or msgpack at module level (the file-loading paths import them inside
-the function that reads a file)."""
+none may import JAX, flax, optax, yaml, msgpack or the JAX package `ttscube_tpu`
+anywhere (the port reads and writes its checkpoint files with its own
+`utils/serialization.py` and `utils/config_io.py`)."""
 
 import ast
 from pathlib import Path
@@ -40,6 +40,21 @@ def test_no_jax_and_no_module_level_yaml_or_msgpack(path):
         assert package not in NEVER, f"{path.name} imports {package}"
         assert not (module_level and package in NOT_AT_MODULE_LEVEL), \
             f"{path.name} imports {package} at module level"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_yaml_or_msgpack_anywhere(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for package, _ in _imports(tree):
+        assert package not in NOT_AT_MODULE_LEVEL, f"{path.name} imports {package}"
+
+
+def test_the_trainer_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"ttscube_tpu_torch/utils/serialization.py", "ttscube_tpu_torch/utils/config_io.py",
+            "ttscube_tpu_torch/utils/checkpoint.py", "ttscube_tpu_torch/train/loop.py",
+            "ttscube_tpu_torch/scripts/train_cubegan.py", "ttscube_tpu_torch/ops/narrow_conv.py",
+            "ttscube_tpu_torch/ops/fused_resblock.py"} <= names
 
 
 def test_the_guard_catches_what_it_guards():

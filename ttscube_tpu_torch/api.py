@@ -9,7 +9,8 @@ total frame count comes back to the host) → frame bucket (multiples of FRAME_B
 at most MAX_FRAMES) → Cubegan.infer at that bucket → trim to total·hop → int16.
 
 `TTSCube(model_path, phonemizer_path)` reads the JAX package's files (`.yaml`,
-`.encodings`, flax msgpack `.model`), importing yaml and msgpack only there;
+`.encodings`, flax msgpack `.model`) with the port's own readers
+(`utils/config_io.py`, `utils/serialization.py`), so it needs neither yaml nor msgpack;
 `TTSCube.from_state_dicts` builds the same object from configs and state dicts.
 """
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ttscube_tpu_torch import resolve_device
+from ttscube_tpu_torch.convert import load_jax_params, read_msgpack
 from ttscube_tpu_torch.data.collate import CubeganCollate
 from ttscube_tpu_torch.data.encodings import CubeganEncodings, PhonemizerEncodings
 from ttscube_tpu_torch.data.text import Text2FeatBlizzard
@@ -26,6 +28,7 @@ from ttscube_tpu_torch.models.cubegan import Cubegan, CubeganConfig
 from ttscube_tpu_torch.models.hifigan import HifiganConfig
 from ttscube_tpu_torch.models.languasito import LanguasitoConfig
 from ttscube_tpu_torch.models.phonemizer import Phonemizer, PhonemizerConfig
+from ttscube_tpu_torch.utils import config_io
 
 FRAME_BUCKET = 256
 MAX_FRAMES = 8192
@@ -64,13 +67,8 @@ def phonemizer_config(penc: PhonemizerEncodings) -> PhonemizerConfig:
 
 class TTSCube:
     def __init__(self, model_path: str, phonemizer_path: str, device=None):
-        import yaml  # file-loading path only
-
-        from ttscube_tpu_torch.convert import load_jax_params, read_msgpack
-
         encodings = CubeganEncodings(model_path + ".encodings")
-        with open(model_path + ".yaml") as f:
-            config = config_from_yaml(yaml.safe_load(f), encodings)
+        config = config_from_yaml(config_io.load(model_path + ".yaml") or {}, encodings)
         penc = PhonemizerEncodings(phonemizer_path + ".encodings")
         tree = read_msgpack(model_path + ".model")
         model = load_jax_params(Cubegan(config), {"lang": tree["lang"], "gen": tree["gen"]})

@@ -1,9 +1,14 @@
 // A whole MRF stage of the HiFi-GAN generator as one kernel launch, for sm_90a, in two
-// forms with two C entry points:
+// forms with three C entry points:
 //
 //   ttscube_fused_mrf1       replaces the TPU kernel `fused_mrf1`
 //                            (ttscube_tpu/ops/pallas_resblock.py:754, kernel body
 //                            `_mrf_kernel` :684): x (B, T, C) -> out (B, T, C)
+//   ttscube_fused_resblock1  replaces `fused_resblock1` (pallas_resblock.py:110, kernel
+//                            body `_resblock_kernel` :55): the same kernel with exactly
+//                            one chain, whose mean is the chain itself (a division by 1,
+//                            exact); its own entry point, so that its launches are
+//                            counted apart from B3's
 //   ttscube_fused_stage_mid  replaces `fused_tail_stage` with with_post=False
 //                            (pallas_resblock.py:295, `_tail_tile_fn` :190): an upsample
 //                            prologue, leaky(0.1) -> ConvTranspose1d with
@@ -408,6 +413,16 @@ int ttscube_fused_mrf1(const float* x, int B, int T, int C, const float* w,
   return dispatch<false>(a, bf16, max_k, max_reach, grid_out, stream);
 }
 
+// One ResBlock1: arguments as ttscube_fused_mrf1's, with spec holding exactly one chain;
+// workspace: 2 * B * T * C floats.
+int ttscube_fused_resblock1(const float* x, int B, int T, int C, const float* w,
+                            const float* bias, const int* spec_in, int bf16,
+                            float* workspace, float* out, int* grid_out, void* stream) {
+  if (spec_in[0] != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return ttscube_fused_mrf1(x, B, T, C, w, bias, spec_in, bf16, workspace, out, grid_out,
+                            stream);
+}
+
 // z (B, T_in, C_in) fp32; wup [4][C_in][C]; bup [C]; w, bias, spec as above; workspace:
 // (1 + 2 * n_chains) * B * 4 * T_in * C floats; out (B, 4 * T_in, C) fp32.
 int ttscube_fused_stage_mid(const float* z, int B, int T_in, int C_in, const float* wup,
@@ -442,6 +457,12 @@ int ttscube_fused_mrf1_limits(int* out) {
   out[3] = MAX_DILS;
   out[4] = MAX_K;
   out[5] = MAX_REACH;
+  return 0;
+}
+
+int ttscube_fused_resblock1_limits(int* out) {
+  ttscube_fused_mrf1_limits(out);
+  out[2] = 1;  // chains
   return 0;
 }
 

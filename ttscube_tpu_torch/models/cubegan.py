@@ -106,6 +106,13 @@ class Cubegan(nn.Module):
         self.mel = MelSpec(gan_mel_config(config.sample_rate, hop_length=config.hop_size))
 
     @torch.inference_mode()
+    def forward(self, X):
+        """Teacher-forced synthesis: the generator on the conditioning the text model
+        builds from the batch's own alignment and pitch. Returns audio (B, frames·hop)."""
+        _, _, _, cond = self.lang(X)
+        return self.gen(cond)
+
+    @torch.inference_mode()
     def infer(self, X, max_frames: int):
         """Free synthesis: (audio (B, max_frames·hop) fp32, aux dict)."""
         cond, aux = self.lang.infer(X, max_frames)
