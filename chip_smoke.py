@@ -71,8 +71,10 @@ REPO = Path(__file__).resolve().parent
 HOP = 240
 SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores, fp32 CUDA
+# cores, HBM3
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -696,17 +698,22 @@ def main() -> int:
     t0 = time.perf_counter()
     conv_errs = {}
     nconv, nplain = narrow_conv.narrow_conv_blocked, narrow_conv.narrow_conv_plain
-    # the shape of the TPU kernel's docstring, and others the kernel takes (C = 256
-    # walks input-channel chunks; an even k pads (k - 1)//2 on the left)
+    # the shape of the TPU kernel's docstring, and others the kernel takes: a T that is
+    # no multiple of the bf16 form's 256-row tile; C = 96 (an odd count of 16-channel
+    # MMA columns); an even k, which pads (k - 1)//2 on the left; C = 256, where the
+    # bf16 form walks input-channel chunks (and at k = 15 the fp32 form too)
     for label, (batch, t_len, C, k) in (("docstring", (8, 122880, 32, 11)),
                                         ("c64", (2, 1000, 64, 7)), ("c256", (1, 4096, 256, 3)),
-                                        ("even_k", (2, 3000, 32, 4))):
+                                        ("even_k", (2, 3000, 32, 4)),
+                                        ("ragged", (3, 1000, 32, 11)),
+                                        ("c96", (2, 700, 96, 6)),
+                                        ("c256_k15", (1, 2000, 256, 15))):
         g = torch.Generator().manual_seed(t_len + k)
         x = torch.randn(batch, t_len, C, generator=g).to(dev)
         w = (torch.randn(k, C, C, generator=g) / math.sqrt(k * C)).to(dev)
         xb, wb = x.bfloat16(), w.bfloat16()
         with no_tf32():
-            got, again, got16 = nconv(x, w), nconv(x, w), nconv(xb, wb)
+            got, again, got16, again16 = nconv(x, w), nconv(x, w), nconv(xb, wb), nconv(xb, wb)
             want, want16 = nplain(x, w), nplain(xb, wb)
             torch.cuda.synchronize()
         tf32 = nplain(x, w)  # PyTorch's default: TF32 convs
@@ -715,7 +722,8 @@ def main() -> int:
         check(got.shape == want.shape == (batch, t_len, C) and got16.dtype == torch.float32
               and bool(torch.isfinite(got).all()) and bool(torch.isfinite(got16).all()),
               f"narrow_conv {label}: shape {tuple(got.shape)} or not finite")
-        check(torch.equal(got, again), f"narrow_conv {label}: two launches differ")
+        check(torch.equal(got, again) and torch.equal(got16, again16),
+              f"narrow_conv {label}: two launches differ")
         case = f"narrow_conv {label} B={batch} T={t_len} C={C} k={k}"
         for mode, out, ref, witness, control in (("fp32", got, want, wit, got16),
                                                  ("bf16", got16, want16, wit16, got)):
@@ -1115,15 +1123,39 @@ def main() -> int:
     flops = fused_tail.tail_grad_flops(TRAIN_BATCH, 3000, 64, w.kernel_sizes, w.dilations)
     # inputs read once (z, dy, the packed weights), outputs written once (dz, the grads)
     nbytes = 4 * (2 * z.numel() + dy.numel() + 2 * sum(t.numel() for t in w[:6]))
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    # the fp32-accurate routes for the operations: fp32 FMAs on the CUDA cores, or
+    # 3xTF32 on the tensor cores (three TF32 products for each fp32 one, the kernel's
+    # route); the bound is the faster
+    t_fp32 = flops / PEAK_FP32 * 1e3
+    t_3xtf32 = 3 * flops / PEAK_TF32 * 1e3
+    t_ops = min(t_fp32, t_3xtf32)
     grad_row = dict(ms=statistics.median(k1 + k2), plain_ms=statistics.median(p1 + p2),
                     bound_ms=max(t_ops, t_bytes),
-                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    bound_route="3xtf32" if t_3xtf32 < t_fp32 else "fp32",
+                    fp32_cores_bound_ms=max(t_fp32, t_bytes))
     print(f"  fused_tail_stage_grad fp32 B={TRAIN_BATCH} T_in=3000 ms={grad_row['ms']:.4f} "
           f"plain_backward_ms={grad_row['plain_ms']:.4f} bound_ms={grad_row['bound_ms']:.4f} "
-          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) achieved="
-          f"{flops / grad_row['ms'] / 1e9:.2f} TFLOP/s library_ms=none (no single PyTorch "
-          f"call computes the stage VJP)", flush=True)
+          f"(3xTF32 on the tensor cores, the kernel's route; fp32 CUDA cores {t_fp32:.4f}; "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) achieved="
+          f"{flops / grad_row['ms'] / 1e9:.2f} TFLOP/s = {grad_row['bound_ms'] / grad_row['ms']:.3f} "
+          f"of the 3xTF32 bound, {grad_row['fp32_cores_bound_ms'] / grad_row['ms']:.3f} of the "
+          f"fp32 cores' library_ms=none (no single PyTorch call computes the stage VJP)",
+          flush=True)
+    # where B2's time goes: thread block 0's clocks in each phase of its tiles, and in
+    # the MMA phases the clocks per mma.sync of each of the SM's 4 schedulers
+    clocks = torch.zeros(fused_tail.GRAD_LIMITS["n_phases"], dtype=torch.int64, device=dev)
+    fused_tail.fused_tail_stage_grad(z.detach(), w, dy, phase_clocks=clocks)
+    torch.cuda.synchronize()
+    clocks = clocks.tolist()
+    tiles0 = len(range(0, TRAIN_BATCH * -(-12000 // 256), fused_tail.GRAD_BLOCKS))
+    mma = fused_tail.tail_grad_mma_counts(w.kernel_sizes, w.dilations)
+    print(f"  fused_tail_stage_grad phases (block 0, {tiles0} tiles, {sum(clocks)} clocks): "
+          + "; ".join(f"{name} {c} ({c / sum(clocks):.3f}" + (
+              f", {c / (tiles0 * mma[name] / 4):.1f} clocks per MMA per scheduler)"
+              if name in mma else ")") for name, c in zip(fused_tail.GRAD_PHASES, clocks)),
+          flush=True)
     # B3 at the shapes of v1's stages 0 and 1, B1-mid at stage 2's, for a request of 256
     # frames: the kernel against its plain version, in turns, bf16 under the default
     # TF32 settings (as served), fp32 in full fp32; bounds from this run's shapes
@@ -1210,7 +1242,8 @@ def main() -> int:
         print(f"  narrow_conv {mode} B={B5} T={T5} C={C5} k={K5} ms={ms:.4f} plain_ms="
               f"{plain_ms:.4f} library_ms={library_ms:.4f} (F.conv1d, {mode}) bound_ms="
               f"{max(t_ops, t_bytes):.4f} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
-              f"achieved={flops / ms / 1e9:.2f} TFLOP/s", flush=True)
+              f"achieved={flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s = "
+              f"{max(t_ops, t_bytes) / ms:.3f} of the bound", flush=True)
     del x32, w32c, xx, ww, x_nct, w_oik
     print(f"  train step B={TRAIN_BATCH} median_ms={statistics.median(step_ms[1:]):.1f} "
           f"(steps 2-{TRAIN_STEPS}, host clock, default TF32) first_ms={step_ms[0]:.1f}",
@@ -1248,9 +1281,7 @@ def main() -> int:
         "replaces": "ttscube_tpu/ops/pallas_resblock.py:664",
         "launches": main_counts["fused_tail_stage_grad"],
         "max_abs_err": max(v for k, v in grad_errs.items() if k[1] == 3000),
-        "ms": grad_row["ms"], "plain_ms": grad_row["plain_ms"],
-        "bound_ms": grad_row["bound_ms"], "bound_by": grad_row["bound_by"],
-        "library_ms": None}, {
+        **grad_row, "library_ms": None}, {
         "name": "fused_mrf1", "route": "cuda",
         "source": "ttscube_tpu_torch/csrc/fused_mrf_stage.cu",
         "replaces": "ttscube_tpu/ops/pallas_resblock.py:754",
@@ -1268,14 +1299,14 @@ def main() -> int:
         "replaces": "ttscube_tpu/ops/pallas_resblock.py:110",
         "launches": main_counts["fused_resblock1"],
         "phase_launches": phase_launches["fused_resblock1"],
-        "max_abs_err": res_errs["stage3"][1], **res_rows["bf16"], "library_ms": None}, {
-        "name": "narrow_conv_blocked", "route": "cuda",
+        "max_abs_err": res_errs["stage3"][1], **res_rows["bf16"], "library_ms": None}, *[{
+        "name": f"narrow_conv_blocked[{mode}]", "route": "cuda", "operands": mode,
         "source": "ttscube_tpu_torch/csrc/narrow_conv.cu",
         "replaces": "ttscube_tpu/ops/pallas_conv.py:46",
         "launches": main_counts["narrow_conv_blocked"],
         "phase_launches": phase_launches["narrow_conv_blocked"],
-        "max_abs_err": conv_errs[("docstring", "fp32")], **conv_rows["fp32"]}]}),
-          flush=True)
+        "max_abs_err": conv_errs[("docstring", mode)], **conv_rows[mode]}
+        for mode in ("fp32", "bf16")]]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

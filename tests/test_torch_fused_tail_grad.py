@@ -129,6 +129,42 @@ def test_tail_grad_flops_counts_the_v1_stage():
     assert fused_tail.tail_grad_flops(16, 3000, C_IN, *V1) == 16 * 12_000 * 787_776
 
 
+@pytest.mark.parametrize("chains,n_convs", [(V1, 18), (PALLAS_TEST, 10)])
+def test_grad_workspace_holds_every_saved_slab(chains, n_convs):
+    """B2's workspace for one thread block: a slab of 256 + 2·64 samples × 32 channels
+    for each conv's saved input, one for the upsample's output and one for its
+    cotangent, and the chain sum over the 262 rows conv_post reads. At v1 (18 convs)
+    that is 254,144 floats, 134.2 MB for 132 blocks."""
+    assert sum(2 * len(d) for d in chains[1]) == n_convs
+    floats = fused_tail.grad_workspace_floats(n_convs)
+    assert floats == (n_convs + 2) * 384 * 32 + 262 * 32
+    assert floats % 4 == 0  # each block's workspace starts on a 16-byte boundary
+    if n_convs == 18:
+        assert floats == 254_144 and round(132 * floats * 4 / 1e6, 1) == 134.2
+
+
+@pytest.mark.parametrize("chains,want", [
+    # one chain of 1 tap: every pass covers the 262 rows conv_post reads, 17 items of
+    # 16 rows x 2 halves x 1 tap x 4 steps x 2 n-tiles x 3 products; a weight grad 4
+    # tiles x 33 steps of 8 rows x 6
+    (((1,), ((1,),)), dict.fromkeys(("forward conv_d", "forward conv_1",
+                                     "conv_1 input cotangent", "conv_d input cotangent"),
+                                    816) | {"weight grads": 2 * 792}),
+    (V1, {"forward conv_d": 59_520, "forward conv_1": 58_992, "weight grads": 116_928,
+          "conv_1 input cotangent": 59_520, "conv_d input cotangent": 64_176}),
+])
+def test_grad_mma_counts(chains, want):
+    """The mma.sync instructions of one B2 tile by phase, which chip_smoke.py divides
+    the phases' clocks by; at v1 359,136, 3.65 x the counted operations (3 products for
+    each, and the rows of the halo each conv still needs)."""
+    got = fused_tail.tail_grad_mma_counts(*chains)
+    assert got == want
+    assert set(got) <= set(fused_tail.GRAD_PHASES)
+    if chains == V1:
+        per_tile = fused_tail.tail_grad_flops(1, 64, C_IN, *V1)  # one tile: 256 samples
+        assert round(sum(got.values()) * 2 * 16 * 8 * 8 / per_tile, 2) == 3.65
+
+
 def test_grad_wrapper_runs_only_on_the_card():
     c = _case(1, 16, *V1, seed=1)
     tr = lambda a: t(np.ascontiguousarray(np.transpose(a, (2, 1, 0))))

@@ -19,14 +19,15 @@ DILS = ((1, 3, 5),) * 3
 GRAD_REL_RMS = 5e-3  # chip_smoke.py's limit on B2's grads at the training shape
 
 
-def _case(B, T_in, seed, device, ks=KS, dils=DILS):
-    """z and the tail weights in PyTorch layouts (v1 chains unless given)."""
+def _case(B, T_in, seed, device, ks=KS, dils=DILS, c_in=64):
+    """z and the tail weights in PyTorch layouts (v1 chains and 64 input channels unless
+    given)."""
     rng = np.random.default_rng(seed)
     n = lambda scale, *s: torch.from_numpy(
         (scale * rng.standard_normal(s)).astype(np.float32)).to(device)
     kernels = [n(0.5 / np.sqrt(k * 32), 32, 32, k)
                for k, d in zip(ks, dils) for _ in range(2 * len(d))]
-    return (n(1.0, B, T_in, 64), n(0.5 / 8, 64, 32, 4), n(0.1, 32), kernels,
+    return (n(1.0, B, T_in, c_in), n(0.5 / np.sqrt(c_in), c_in, 32, 4), n(0.1, 32), kernels,
             [n(0.1, 32) for _ in kernels], n(0.3, 1, 32, 7), n(0.05, 1))
 
 
@@ -153,20 +154,26 @@ def _within(a, b, tol=2e-4):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T_in,ks,dils,blocks", [
-    (2, 701, KS, DILS, None),            # ragged: the last tile is cut
-    (2, 300, (3, 7), ((1, 3), (1, 3, 5)), None),  # the chains of the JAX package's grad test
-    (2, 701, KS, DILS, 3),  # 22 tiles on 3 blocks: partials and workspace carry across tiles
+@pytest.mark.parametrize("B,T_in,ks,dils,blocks,c_in", [
+    (2, 701, KS, DILS, None, 64),            # ragged: the last tile is cut
+    (2, 300, (3, 7), ((1, 3), (1, 3, 5)), None, 64),  # the JAX package's grad test chains
+    (2, 701, KS, DILS, 3, 64),  # 22 tiles on 3 blocks: partials and workspace carry over
+    (1, 301, KS, DILS, None, 64),   # one window, its last tile cut
+    (4, 333, KS, DILS, None, 64),   # the trainer's batch, a ragged last tile in each window
+    (1, 50, KS, DILS, None, 64),    # shorter than one tile
+    # the most taps an MRF conv may have (its weights fill the shared memory's last
+    # room) and the most input channels the upsample takes
+    (2, 301, (15, 3), ((1,), (1, 3)), None, 128),
 ])
 def test_fused_tail_grad_kernel_matches_plain_vjp(cuda, monkeypatch, B, T_in, ks, dils,
-                                                  blocks):
+                                                  blocks, c_in):
     """B2 against autograd of the plain version, fp32 (TF32 off), every grad at
     rtol = atol = 2e-4 (the JAX package's grad tests' tolerance); two launches on the
     same input give bit-equal grads; the counters rise by one launch each. With
     `blocks`, B2 runs on that many thread blocks, so that each walks several tiles."""
     if blocks is not None:
         monkeypatch.setattr(fused_tail, "GRAD_BLOCKS", blocks)
-    args = _case(B, T_in, seed=T_in, device=cuda, ks=ks, dils=dils)
+    args = _case(B, T_in, seed=T_in, device=cuda, ks=ks, dils=dils, c_in=c_in)
     leaves = _grad_leaves(args)
     dy = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (B, 4 * T_in)).astype(np.float32)).to(cuda)
@@ -184,6 +191,24 @@ def test_fused_tail_grad_kernel_matches_plain_vjp(cuda, monkeypatch, B, T_in, ks
 
 
 @pytest.mark.gpu
+def test_fused_tail_grad_phase_clocks(cuda):
+    """B2's optional clock profile: every phase of block 0's tiles takes clocks, and the
+    grads are bit-equal to a launch without the profile."""
+    args = _case(2, 701, seed=5, device=cuda)
+    w = fused_tail.pack_tail_weights(*args[1:], kernel_sizes=KS, dilations=DILS)
+    dy = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 2804))
+                          .astype(np.float32)).to(cuda)
+    clocks = torch.zeros(fused_tail.GRAD_LIMITS["n_phases"], dtype=torch.int64, device=cuda)
+    got = fused_tail.fused_tail_stage_grad(args[0], w, dy, phase_clocks=clocks)
+    plain = fused_tail.fused_tail_stage_grad(args[0], w, dy)
+    torch.cuda.synchronize()
+    assert len(fused_tail.GRAD_PHASES) == clocks.numel() and bool((clocks > 0).all())
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    with pytest.raises(ValueError, match="phase_clocks"):
+        fused_tail.fused_tail_stage_grad(args[0], w, dy, phase_clocks=clocks.int())
+
+
+@pytest.mark.gpu
 def test_fused_tail_grad_kernel_refuses_what_it_cannot_run(cuda):
     args = _case(1, 32, seed=0, device=cuda)
     w = fused_tail.pack_tail_weights(*args[1:], kernel_sizes=KS, dilations=DILS)
@@ -198,15 +223,16 @@ def test_fused_tail_grad_kernel_refuses_what_it_cannot_run(cuda):
 
 
 @pytest.mark.gpu
-def test_fused_tail_grad_kernel_at_the_training_shape(cuda):
-    """B = 16 windows of 12,000 samples. Here no fp32 VJP of the stage, the plain one
+@pytest.mark.parametrize("B,T_in", [(16, 3000), (4, 3000), (1, 3000), (4, 2999)])
+def test_fused_tail_grad_kernel_at_the_training_shape(cuda, B, T_in):
+    """B = 16 windows of 12,000 samples (and the trainer's B = 4, one window, and a
+    T_in whose last tile is cut). Here no fp32 VJP of the stage, the plain one
     included, meets rtol = atol = 2e-4 against the exact (fp64) VJP: where an activation
     lies within fp32 noise of a leaky kink, the fp32 forward takes the other slope there
     and the grads of every conv upstream of it move. So each grad is held to the exact
     VJP within GRAD_REL_RMS in relative RMS (chip_smoke.py's limit, set from several
     seeds there): the kernel and the plain fp32 version (the witness) must meet it, the
     plain version under TF32 (the control) must not. Two launches give bit-equal grads."""
-    B, T_in = 16, 3000
     args = _case(B, T_in, seed=T_in, device=cuda)
     leaves = _grad_leaves(args)
     dy = torch.from_numpy(np.random.default_rng(1).standard_normal(
@@ -404,12 +430,18 @@ def test_fused_resblock_kernel_matches_plain(cuda, B, T, C, k, dils):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,T,C,k", [(2, 1000, 64, 7), (1, 4096, 256, 3), (2, 77, 32, 4),
-                                     (1, 500, 96, 15), (1, 300, 256, 15)])
+                                     (1, 500, 96, 15), (1, 300, 256, 15),
+                                     (8, 122880, 32, 11),  # the Pallas kernel's docstring
+                                     (3, 1000, 32, 11), (2, 700, 96, 6), (1, 2000, 256, 15),
+                                     (2, 513, 160, 2)])
 def test_narrow_conv_kernel_matches_plain(cuda, B, T, C, k):
     """B5 against `F.conv1d` over the same operands: fp32 (TF32 off) within 1e-5 (the
     JAX test's atol) scaled to the output's range; bf16 operands against the plain fp32
     conv of the same bf16-rounded values (products exact in fp32) within the same;
-    two launches bit-equal. C = 256 at k = 15 walks input-channel chunks."""
+    two launches bit-equal in each. T need not be a multiple of the bf16 form's
+    256-row tile; C = 96 and 160 leave an odd count of 16-channel MMA columns; an even
+    k pads (k − 1)//2 on the left; C = 256 at k = 15 (and bf16 at C = 256, k = 3) walks
+    input-channel chunks, over several tiles at T = 2000."""
     from ttscube_tpu_torch.ops import narrow_conv
 
     rng = np.random.default_rng(T + C + k)
@@ -418,13 +450,14 @@ def test_narrow_conv_kernel_matches_plain(cuda, B, T, C, k):
                          .astype(np.float32)).to(cuda)
     before = narrow_conv.narrow_conv_blocked.launches
     got, again = narrow_conv.narrow_conv_blocked(x, w), narrow_conv.narrow_conv_blocked(x, w)
-    got16 = narrow_conv.narrow_conv_blocked(x.bfloat16(), w.bfloat16())
+    got16, again16 = (narrow_conv.narrow_conv_blocked(x.bfloat16(), w.bfloat16())
+                      for _ in range(2))
     want, want16 = (narrow_conv.narrow_conv_plain(x, w),
                     narrow_conv.narrow_conv_plain(x.bfloat16(), w.bfloat16()))
     torch.cuda.synchronize()
-    assert narrow_conv.narrow_conv_blocked.launches == before + 3
+    assert narrow_conv.narrow_conv_blocked.launches == before + 4
     assert got.shape == (B, T, C) and got16.dtype == torch.float32
-    assert torch.equal(got, again)
+    assert torch.equal(got, again) and torch.equal(got16, again16)
     for a, b in ((got, want), (got16, want16)):
         assert (a - b).abs().max().item() <= 1e-5 * max(1.0, b.abs().max().item())
     assert (got16 - want).abs().max().item() > 1e-3  # the operands really were rounded

@@ -1,7 +1,7 @@
 """The port runs on a machine that has PyTorch and numpy but no JAX, flax, optax, yaml
-or msgpack. Every module of `ttscube_tpu_torch/` and `chip_smoke.py` is parsed here:
-none may import JAX, flax, optax, yaml, msgpack or the JAX package `ttscube_tpu`
-anywhere (the port reads and writes its checkpoint files with its own
+or msgpack. Every module of `ttscube_tpu_torch/`, `chip_smoke.py` and `chip_variants.py`
+is parsed here: none may import JAX, flax, optax, yaml, msgpack or the JAX package
+`ttscube_tpu` anywhere (the port reads and writes its checkpoint files with its own
 `utils/serialization.py` and `utils/config_io.py`)."""
 
 import ast
@@ -10,7 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-SOURCES = sorted((ROOT / "ttscube_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "ttscube_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                  ROOT / "chip_variants.py"]
 NEVER = {"jax", "jaxlib", "flax", "optax", "ttscube_tpu"}
 NOT_AT_MODULE_LEVEL = {"yaml", "msgpack"}
 

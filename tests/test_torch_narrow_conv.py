@@ -97,3 +97,36 @@ def test_conv_flops():
     t_bytes = (x_bf16 + 2 * 11 * 32 * 32 + out) / 3.35e12 * 1e3
     assert round(x_bf16 / 1e6) == 63 and round(out / 1e6) == 126
     assert round(t_bytes, 3) == 0.056 and t_bytes > n / 989e12 * 1e3
+
+
+@pytest.mark.parametrize("C", range(32, 257, 32))
+def test_chunk_plan_fits_the_kernel(C):
+    """The chunk of input channels the wrapper hands the kernel, at every k it takes: a
+    divisor of C (a multiple of 32 for bf16 operands, of 4 for fp32) whose shared memory
+    fits one block's 227 KB, and all of C, so that each block stages the weights once,
+    wherever that fits."""
+    L = narrow_conv.LIMITS
+    for k in range(1, L["max_k"] + 1):
+        for bf16 in (False, True):
+            ck = narrow_conv.plan_chunk(bf16, C, k)
+            assert C % ck == 0 and ck % (L["quantum"] if bf16 else 4) == 0, (k, bf16, ck)
+            assert narrow_conv.smem_bytes(bf16, C, k, ck) <= L["smem_budget"]
+            if narrow_conv.smem_bytes(bf16, C, k, C) <= L["smem_budget"]:
+                assert ck == C, (k, bf16, ck)
+
+
+def test_chunk_plan_at_the_shapes_that_matter():
+    """bf16 at the docstring shape (C = 32, k = 11): the whole weight, 352 rows of 32
+    channels padded to 40 (28,160 bytes), beside two slabs of 256 + 10 rows padded to 40
+    (21,280 bytes each): 70,720 bytes, three blocks to an SM. C = 256 at k = 15 walks
+    chunks of 64 channels: two weight and two slab buffers in 231,360 of the 232,448
+    bytes. fp32 keeps the CUDA-core kernel's plan: the whole weight at C = 32, k = 11 (45,056 bytes)
+    beside a slab of 128 + 10 rows of 33 floats (18,224 bytes, 16-byte aligned)."""
+    assert narrow_conv.plan_chunk(True, 32, 11) == 32
+    assert narrow_conv.smem_bytes(True, 32, 11, 32) == 28_160 + 2 * 21_280 == 70_720
+    assert 3 * 70_720 <= 228 * 1024 < 4 * 70_720
+    assert narrow_conv.plan_chunk(True, 256, 15) == 64
+    assert narrow_conv.smem_bytes(True, 256, 15, 64) == 2 * (76_800 + 38_880) == 231_360
+    assert narrow_conv.plan_chunk(True, 256, 3) == 128
+    assert narrow_conv.plan_chunk(False, 32, 11) == 32
+    assert narrow_conv.smem_bytes(False, 32, 11, 32) == 18_224 + 45_056 == 63_280

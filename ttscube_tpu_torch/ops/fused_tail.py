@@ -258,7 +258,15 @@ def tail_flops(batch: int, t_in: int, c_in: int, kernel_sizes, dilations,
 # -- the backward: kernel B2 -----------------------------------------------------------
 
 GRAD_KERNEL_SOURCE = "fused_tail_stage_grad"
-GRAD_LIMITS = dict(LIMITS, tile=256, halo=64, margin=32)
+# B2's tiling: output samples per tile, halo samples on each side, zero rows around a
+# cotangent slab, and the most taps of an MRF conv (its weights sit in shared memory)
+GRAD_LIMITS = dict(LIMITS, tile=256, halo=64, margin=32, max_k=15, n_phases=11)
+# the phases of a B2 tile, in the order of its optional clock profile
+# (`fused_tail_stage_grad(..., phase_clocks=...)`)
+GRAD_PHASES = ("forward input", "forward staging", "forward conv_d", "forward conv_1",
+               "conv_post backward", "backward staging", "weight grads",
+               "conv_1 input cotangent", "conv_d input cotangent", "chain sum",
+               "upsample backward")
 # thread blocks of the backward kernel: one per SM of an H100. Each walks a fixed list
 # of tiles and keeps its own weight-grad partial, so the grads' summation order, and so
 # their bits, depend on this number and never on scheduling.
@@ -268,23 +276,32 @@ GRAD_BLOCKS = 132
 def _lib_grad():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind(GRAD_KERNEL_SOURCE, "ttscube_fused_tail_stage_grad",
-                       [p, i, i, i] + [p] * 9 + [i, p, p, ctypes.c_longlong, p, p],
+                       [p, i, i, i] + [p] * 9 + [i, p, ctypes.c_longlong, p,
+                                                 ctypes.c_longlong, p, p, p],
                        GRAD_LIMITS)
 
 
-def _flip_transpose_mrf(w: TailWeights):
-    """Each packed MRF kernel [k][c_in][c_out] as [k][c_out][c_in] with the taps
-    reversed: the kernel of the conv that pulls a cotangent back through it."""
+def _transpose_mrf(w: TailWeights):
+    """Each packed MRF kernel [k][c_in][c_out] as [k][c_out][c_in]: the layout in which
+    kernel B2's forward recompute reads it."""
     C = LIMITS["channels"]
     out, off = [], 0
     for k in fused_mrf.conv_sizes(w.kernel_sizes, w.dilations):
-        out.append(w.wmrf[off: off + k * C * C].view(k, C, C).flip(0).transpose(1, 2)
-                   .reshape(-1))
+        out.append(w.wmrf[off: off + k * C * C].view(k, C, C).transpose(1, 2).reshape(-1))
         off += k * C * C
     return torch.cat(out)
 
 
-def fused_tail_stage_grad(z, w: TailWeights, dy):
+def grad_workspace_floats(n_convs: int) -> int:
+    """Floats of B2's workspace for one thread block: a slab (tile + 2·halo samples ×
+    32 channels) for each conv's saved input, one for the upsample's output and one for
+    its cotangent, and the chain sum over the rows conv_post reads (tile + 6)."""
+    G = GRAD_LIMITS
+    slab = (G["tile"] + 2 * G["halo"]) * G["channels"]
+    return (n_convs + 2) * slab + (G["tile"] + G["post_k"] - 1) * G["channels"]
+
+
+def fused_tail_stage_grad(z, w: TailWeights, dy, phase_clocks=None):
     """The VJP of `fused_tail_stage` (fp32): from z (B, T_in, C_in) and the audio's
     cotangent dy (B, 4·T_in), (dz, d wup, d bup, d wmrf, d bmrf, d wpost, d bpost), the
     weight grads in the packed layouts of `TailWeights`.
@@ -294,6 +311,8 @@ def fused_tail_stage_grad(z, w: TailWeights, dy):
     else: CPU tensors take autograd through `fused_tail_stage_plain`
     (`FusedTailStageGrad.backward`). The sum of the blocks' grad partials and the
     overlap-add of the tiles' halo rows into dz are torch ops in a fixed order.
+    `phase_clocks`, an int64 tensor of `GRAD_LIMITS["n_phases"]` on z's device, if given
+    has the clocks that thread block 0 spent in each of `GRAD_PHASES` added to it.
     `fused_tail_stage_grad.launches` counts kernel launches."""
     if z.device.type != "cuda":
         raise ValueError(f"fused_tail_stage_grad: the kernel runs on CUDA tensors, got {z.device}")
@@ -316,17 +335,26 @@ def fused_tail_stage_grad(z, w: TailWeights, dy):
            for t in tensors):
         raise ValueError("fused_tail_stage_grad: packed weights must be contiguous fp32 "
                          "on the input's device")
+    if phase_clocks is not None and (phase_clocks.dtype != torch.int64
+                                     or phase_clocks.shape != (GRAD_LIMITS["n_phases"],)
+                                     or phase_clocks.device != z.device):
+        raise ValueError(f"fused_tail_stage_grad: phase_clocks must be an int64 tensor of "
+                         f"{GRAD_LIMITS['n_phases']} on z's device")
+    if max(w.kernel_sizes) > GRAD_LIMITS["max_k"]:
+        raise ValueError(f"fused_tail_stage_grad: MRF kernels of up to "
+                         f"{GRAD_LIMITS['max_k']} taps, got {w.kernel_sizes}")
     lib = _lib_grad()
     G = GRAD_LIMITS
-    C, tile, slab = G["channels"], G["tile"], G["tile"] + 2 * G["halo"]
+    tile, slab = G["tile"], G["tile"] + 2 * G["halo"]
     zrows, core, lo = slab // fold, tile // fold, G["halo"] // fold
     n_tiles = -(-fold * T_in // tile)
     n_blocks = min(GRAD_BLOCKS, B * n_tiles)
     n_convs = w.bmrf.shape[0]
     sizes = [t.numel() for t in tensors]
-    wt = _flip_transpose_mrf(w)
     dev = z.device
-    workspace = torch.empty(n_blocks * (n_convs + 1) * slab * C, device=dev)
+    wt = _transpose_mrf(w)
+    ws_size = grad_workspace_floats(n_convs)
+    workspace = torch.empty(n_blocks * ws_size, device=dev)
     stride = -(-sum(sizes) // 4) * 4  # each block's partial 16-byte aligned
     partials = torch.zeros(n_blocks, stride, device=dev)
     dzs = torch.empty(B, n_tiles, zrows, C_in, device=dev)
@@ -337,7 +365,8 @@ def fused_tail_stage_grad(z, w: TailWeights, dy):
             z.data_ptr(), B, T_in, C_in, dy.data_ptr(), w.wup.data_ptr(), w.bup.data_ptr(),
             w.wmrf.data_ptr(), wt.data_ptr(), w.bmrf.data_ptr(), w.wpost.data_ptr(),
             w.bpost.data_ptr(), ctypes.cast(spec_arr, ctypes.c_void_p), n_blocks,
-            workspace.data_ptr(), partials.data_ptr(), stride, dzs.data_ptr(),
+            workspace.data_ptr(), ws_size, partials.data_ptr(), stride, dzs.data_ptr(),
+            None if phase_clocks is None else phase_clocks.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_tail_stage_grad: kernel launch failed with CUDA error {err}")
@@ -419,3 +448,30 @@ def tail_grad_flops(batch: int, t_in: int, c_in: int, kernel_sizes, dilations) -
     every conv (upsample, MRF, conv_post) its input's cotangent and its weight grad,
     each as many multiply-adds as the conv itself; so 3 × `tail_flops`."""
     return 3 * tail_flops(batch, t_in, c_in, kernel_sizes, dilations)
+
+
+def tail_grad_mma_counts(kernel_sizes, dilations) -> dict:
+    """The mma.sync instructions one tile of kernel B2 runs in each of its MMA phases
+    (`GRAD_PHASES`): a conv pass deals items of 16 rows x 16 channels, each k taps x 4
+    steps of 8 channels x 2 n-tiles x 3 products (3xTF32); a weight grad 4k tiles of
+    16 x 16, each over the pass's rows in steps of 8, 2 n-tiles x 3 products a step. The
+    passes' rows follow the halo each chain still needs (csrc/fused_tail_stage_grad.cu)."""
+    G = GRAD_LIMITS
+    frows = G["tile"] + G["post_k"] - 1  # the MRF output rows conv_post reads
+    n = dict.fromkeys(GRAD_PHASES[2:4] + GRAD_PHASES[6:9], 0)
+    conv = lambda rows, k: -(-rows // 16) * 2 * k * 4 * 2 * 3
+    wgrad = lambda rows, k: 4 * k * -(-rows // 8) * 2 * 3
+    for k, dils in zip(kernel_sizes, dilations):
+        half = (k - 1) // 2
+        e = sum((d + 1) * half for d in dils)
+        for d in dils:  # forward, pair by pair: e is the halo still needed after it
+            e -= (d + 1) * half
+            n["forward conv_d"] += conv(frows + 2 * e + 2 * half, k)
+            n["forward conv_1"] += conv(frows + 2 * e, k)
+        for d in reversed(dils):  # backward from the last pair, e from 0 again
+            r2 = frows + 2 * e
+            n["conv_1 input cotangent"] += conv(r2 + 2 * half, k)
+            n["conv_d input cotangent"] += conv(r2 + 2 * half + 2 * half * d, k)
+            n["weight grads"] += wgrad(r2, k) + wgrad(r2 + 2 * half, k)
+            e += (d + 1) * half
+    return n
