@@ -9,7 +9,8 @@ Phases, each printing one line with its seconds as it ends:
               fused_tail_stage_grad,fused_mrf_stage,narrow_conv}.cu, by plain nvcc, in
               parallel, with each one's ptxas register and spill line
   kernel      B1 (the fused tail stage) against its plain PyTorch version at serving
-              shapes, fp32 (TF32 off) and bf16 (limits below), raising on a miss
+              shapes, fp32 (TF32 off) and bf16 (limits below), and in fp32 at the
+              training shape (B = 16, T_in = 3,000); two launches must be bit-equal
   kernel_mrf  B3 (a whole MRF stage) likewise, at the serving shapes of v1's stages 0
               and 1, a ragged shape and C = 32, with a witness on the CPU; two launches
               must be bit-equal
@@ -43,7 +44,8 @@ Phases, each printing one line with its seconds as it ends:
               weights, slimmed to {lang, gen}, serve through TTSCube(model_path, ...) on
               the card as the same weights do through TTSCube.from_state_dicts
   times       each kernel's median time beside its plain version's and its bound (and
-              for B5 F.conv1d's), and the train step's median
+              for B5 F.conv1d's): B1 in both forms at the serving shape and at the
+              training shape; and the train step's median
   profile     one served request, one with every stage fused and one train step under
               torch.profiler: device-busy share, top kernels
 
@@ -72,11 +74,12 @@ HOP = 240
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores, fp32 CUDA
-# cores, HBM3
+# cores, HBM3; kernels are timed over TIME_PER launches in a row
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+TIME_PER = 10
 
 TOL_FP32 = 5e-5   # the repo's audio tolerance (tests/test_composed_parity.py)
 # B3 and B1-mid in fp32: the JAX package's MRF tolerance (tests/test_pallas_resblock.py,
@@ -103,6 +106,7 @@ GRAD_SEEDS = (3000, 3001, 3002, 3003)
 FEW_GRAD_BLOCKS = 3
 TRAIN_STEPS = 5
 TRAIN_BATCH = 16
+TRAIN_T_IN = 3000   # the last stage's input rows in a train step: 50 frames x 60
 TRAINER_UTTS = 8    # the trainer phase's corpus: 2 epochs of 2 steps at batch 4
 TRAINER_BATCH = 4
 TRAINER_STEPS = 4
@@ -133,9 +137,11 @@ def say(phase: str, t0: float, **fields) -> None:
           flush=True)
 
 
-def cuda_times(fn, reps: int) -> list:
-    """Milliseconds of `fn` on the card, one pair of CUDA events per call, after 3
-    warm-up calls."""
+def cuda_times(fn, reps: int, per: int = 1) -> list:
+    """Milliseconds of `fn` on the card, after 3 warm-up calls: `reps` readings, each
+    one pair of CUDA events around `per` calls in a row, divided by `per`. With per > 1
+    the host enqueues the next call while the card runs the last, so a reading is the
+    device's time rather than the host's time to launch."""
     import torch
 
     for _ in range(3):
@@ -145,11 +151,32 @@ def cuda_times(fn, reps: int) -> list:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(per):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per)
     return times
+
+
+def ops_bound_ms(flops: float, mode: str) -> float:
+    """The least milliseconds the card needs for `flops` operations whose operands are
+    `mode`: "bf16" on the bf16 tensor cores; "fp32" on the faster of its fp32-accurate
+    routes, the fp32 CUDA cores or 3xTF32 on the tensor cores (three TF32 products for
+    each fp32 one)."""
+    if mode == "bf16":
+        return flops / PEAK_BF16 * 1e3
+    if mode == "fp32":
+        return min(flops / PEAK_FP32, 3 * flops / PEAK_TF32) * 1e3
+    raise ValueError(f"ops_bound_ms: mode {mode!r}")
+
+
+def bound(flops: float, nbytes: float, mode: str) -> dict:
+    """A kernel's bound: the larger of `ops_bound_ms` and its bytes (each input read
+    once, each output written once) over the card's memory rate, and which it is."""
+    t_ops, t_bytes = ops_bound_ms(flops, mode), nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 @contextlib.contextmanager
@@ -178,6 +205,14 @@ def tail_input(batch: int, frames: int, seed: int, device):
 
     g = torch.Generator().manual_seed(seed)
     return torch.randn(batch, 60 * frames + 16, 64, generator=g).to(device)
+
+
+def train_input(device):
+    """The last stage's input as a train step hands it over: z (16, 3,000, 64), seeded."""
+    import torch
+
+    g = torch.Generator().manual_seed(TRAIN_T_IN)
+    return torch.randn(TRAIN_BATCH, TRAIN_T_IN, 64, generator=g).to(device)
 
 
 def tail_leaves(gen, batch: int, t_in: int, seed: int, device):
@@ -546,8 +581,11 @@ def main() -> int:
         for batch, frames in ((1, 256), (2, 300)):
             z = tail_input(batch, frames, seed=frames, device=dev)
             got32, got16 = (fused_tail.fused_tail_stage(z, w) for w in (w32, w16))
+            again32, again16 = (fused_tail.fused_tail_stage(z, w) for w in (w32, w16))
             want32, want16 = (fused_tail.fused_tail_stage_plain(z, w) for w in (w32, w16))
             torch.cuda.synchronize()
+            check(torch.equal(got32, again32) and torch.equal(got16, again16),
+                  f"fused_tail_stage B={batch} F={frames}: two launches differ")
             for got in (got32, got16):
                 check(got.shape == want32.shape == (batch, z.shape[1] * 4),
                       f"fused_tail_stage shape {tuple(got.shape)} vs {tuple(want32.shape)}")
@@ -566,6 +604,19 @@ def main() -> int:
                        distance(got32, want16),
                        distance(fused_tail.fused_tail_stage_plain(z.cpu(), moved(w16, "cpu")),
                                 want16))
+        # fp32 at the training shape, where the train steps launch it
+        z = train_input(dev)
+        got32, again32 = (fused_tail.fused_tail_stage(z, w32) for _ in range(2))
+        want32 = fused_tail.fused_tail_stage_plain(z, w32)
+        torch.cuda.synchronize()
+        check(got32.shape == want32.shape == (TRAIN_BATCH, 4 * z.shape[1])
+              and bool(torch.isfinite(got32).all()), "fused_tail_stage: training shape")
+        check(torch.equal(got32, again32), "fused_tail_stage training shape: two launches "
+                                           "differ")
+        err = errs[("fp32", TRAIN_BATCH, "train")] = distance(got32, want32)[0]
+        print(f"  fused_tail_stage fp32 B={TRAIN_BATCH} T_in={TRAIN_T_IN} max_abs_err={err:.3e} "
+              f"tol={TOL_FP32:.0e} bit_equal_relaunch=True", flush=True)
+        check(err <= TOL_FP32, f"fused_tail_stage fp32 training shape: max abs err {err:.3e}")
     say("kernel", t0, checks=len(errs))
 
     # -- kernel_mrf -----------------------------------------------------------------
@@ -1081,28 +1132,36 @@ def main() -> int:
 
     # -- times --------------------------------------------------------------------
     t0 = time.perf_counter()
-    z = tail_input(1, 256, seed=256, device=dev)
-    rows = []
-    for mode, w, peak in (("bf16", w16, PEAK_BF16), ("fp32", w32, PEAK_FP32)):
+    print(f"  (each time: the median of readings over {TIME_PER} launches in a row)",
+          flush=True)
+    b1_rows = {}
+    # both forms at the serving shape and at the training shape (where the main path
+    # launches fp32 only)
+    serve_z, train_z = tail_input(1, 256, seed=256, device=dev), train_input(dev)
+    train_shape = f"B={TRAIN_BATCH} T_in={TRAIN_T_IN}"
+    for shape, z, mode, w in (("B=1 F=256", serve_z, "bf16", w16),
+                              ("B=1 F=256", serve_z, "fp32", w32),
+                              (train_shape, train_z, "bf16", w16),
+                              (train_shape, train_z, "fp32", w32)):
         kernel = lambda: fused_tail.fused_tail_stage(z, w)
         plain = lambda: fused_tail.fused_tail_stage_plain(z, w)
         # in turns (plain, kernel, kernel, plain) so that clock drift hits both alike;
         # bf16 under the default TF32 settings, as served; fp32 in full fp32
-        with no_tf32() if w is w32 else contextlib.nullcontext():
-            p1, k1, k2, p2 = (cuda_times(f, 25) for f in (plain, kernel, kernel, plain))
+        with no_tf32() if mode == "fp32" else contextlib.nullcontext():
+            p1, k1, k2, p2 = (cuda_times(f, 15, TIME_PER) for f in (plain, kernel, kernel, plain))
         ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
         flops = fused_tail.tail_flops(z.shape[0], z.shape[1], z.shape[2],
                                       w.kernel_sizes, w.dilations)
         # each input read once, the output written once: z, the packed weights, audio
         nbytes = 4 * (z.numel() + z.shape[0] * z.shape[1] * 4
                       + sum(t.numel() for t in w[:6]))
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-        rows.append(dict(mode=mode, ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-                         bound_by="operations" if t_ops >= t_bytes else "bytes"))
-        print(f"  fused_tail_stage {mode} B=1 F=256 ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={max(t_ops, t_bytes):.4f} ({flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB) achieved={flops / ms / 1e9:.2f} TFLOP/s "
-              f"library_ms=none (no single PyTorch call computes this stage)", flush=True)
+        row = b1_rows[(mode, shape)] = dict(ms=ms, plain_ms=plain_ms,
+                                            **bound(flops, nbytes, mode))
+        print(f"  fused_tail_stage {mode} {shape} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={row['bound_ms']:.4f} ({flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB) achieved={flops / ms / 1e9:.2f} TFLOP/s = "
+              f"{row['bound_ms'] / ms:.3f} of the bound library_ms=none (no single PyTorch "
+              f"call computes this stage)", flush=True)
     # B2 at the training shape: the kernel (with its wrapper's packing and sums) against
     # the plain version's autograd backward (its forward's graph kept, not timed)
     leaves, dy = tail_leaves(gen, TRAIN_BATCH, 3000, seed=3000, device=dev)
@@ -1118,23 +1177,16 @@ def main() -> int:
         plain_in = [zd, *packed[:6]]
         kernel = lambda: fused_tail.fused_tail_stage_grad(z.detach(), w, dy)
         plain = lambda: torch.autograd.grad(out, plain_in, dy, retain_graph=True)
-        p1, k1, k2, p2 = (cuda_times(f, 25) for f in (plain, kernel, kernel, plain))
+        p1, k1, k2, p2 = (cuda_times(f, 15, TIME_PER) for f in (plain, kernel, kernel, plain))
     del out
     flops = fused_tail.tail_grad_flops(TRAIN_BATCH, 3000, 64, w.kernel_sizes, w.dilations)
     # inputs read once (z, dy, the packed weights), outputs written once (dz, the grads)
     nbytes = 4 * (2 * z.numel() + dy.numel() + 2 * sum(t.numel() for t in w[:6]))
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    # the fp32-accurate routes for the operations: fp32 FMAs on the CUDA cores, or
-    # 3xTF32 on the tensor cores (three TF32 products for each fp32 one, the kernel's
-    # route); the bound is the faster
+    # the bound is 3xTF32's, the kernel's route; the fp32 CUDA cores' beside it
     t_fp32 = flops / PEAK_FP32 * 1e3
-    t_3xtf32 = 3 * flops / PEAK_TF32 * 1e3
-    t_ops = min(t_fp32, t_3xtf32)
     grad_row = dict(ms=statistics.median(k1 + k2), plain_ms=statistics.median(p1 + p2),
-                    bound_ms=max(t_ops, t_bytes),
-                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                    bound_route="3xtf32" if t_3xtf32 < t_fp32 else "fp32",
-                    fp32_cores_bound_ms=max(t_fp32, t_bytes))
+                    **bound(flops, nbytes, "fp32"),
+                    fp32_cores_bound_ms=max(t_fp32, nbytes / PEAK_BYTES * 1e3))
     print(f"  fused_tail_stage_grad fp32 B={TRAIN_BATCH} T_in=3000 ms={grad_row['ms']:.4f} "
           f"plain_backward_ms={grad_row['plain_ms']:.4f} bound_ms={grad_row['bound_ms']:.4f} "
           f"(3xTF32 on the tensor cores, the kernel's route; fp32 CUDA cores {t_fp32:.4f}; "
@@ -1158,14 +1210,15 @@ def main() -> int:
           flush=True)
     # B3 at the shapes of v1's stages 0 and 1, B1-mid at stage 2's, for a request of 256
     # frames: the kernel against its plain version, in turns, bf16 under the default
-    # TF32 settings (as served), fp32 in full fp32; bounds from this run's shapes
+    # TF32 settings (as served), fp32 in full fp32; bounds from this run's shapes, fp32
+    # by its fastest fp32-accurate route
     stage_rows = {}
     for label, i, t_len, c_in in (("fused_mrf1 stage0", 0, 1280, 256),
                                   ("fused_mrf1 stage1", 1, 3840, 128),
                                   ("fused_tail_stage_mid stage2", 2, 3840, 128)):
         g = torch.Generator().manual_seed(t_len)
         x = torch.randn(1, t_len, c_in, generator=g).to(dev)
-        for mode, cd, peak in (("bf16", torch.bfloat16, PEAK_BF16), ("fp32", None, PEAK_FP32)):
+        for mode, cd in (("bf16", torch.bfloat16), ("fp32", None)):
             w = gen.stage_weights(i, cd)
             if i < 2:
                 kernel = lambda: fused_mrf.fused_mrf1(x, w)
@@ -1181,16 +1234,15 @@ def main() -> int:
                 n_out = 4 * t_len * C
                 n_w = sum(t.numel() for t in (w.wup, w.bup, w.wmrf, w.bmrf))
             with no_tf32() if cd is None else contextlib.nullcontext():
-                p1, k1, k2, p2 = (cuda_times(f, 10) for f in (plain, kernel, kernel, plain))
+                p1, k1, k2, p2 = (cuda_times(f, 10, TIME_PER)
+                                  for f in (plain, kernel, kernel, plain))
             ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
             # each input read once, the output written once: x, the packed weights, out
             nbytes = 4 * (x.numel() + n_out + n_w)
-            t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-            stage_rows[(label, mode)] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+            row = stage_rows[(label, mode)] = dict(ms=ms, plain_ms=plain_ms,
+                                                   **bound(flops, nbytes, mode))
             print(f"  {label} {mode} B=1 T={t_len} C_in={c_in} ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} bound_ms={max(t_ops, t_bytes):.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={row['bound_ms']:.4f} "
                   f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) achieved="
                   f"{flops / ms / 1e9:.2f} TFLOP/s library_ms=none (no single PyTorch call "
                   f"computes this stage)", flush=True)
@@ -1201,19 +1253,17 @@ def main() -> int:
     a = resblock_args(gen, 3, 2, dev)
     x = torch.randn(1, 61440, 32, generator=torch.Generator().manual_seed(61440)).to(dev)
     res_rows = {}
-    for mode, cd, peak in (("bf16", torch.bfloat16, PEAK_BF16), ("fp32", None, PEAK_FP32)):
+    for mode, cd in (("bf16", torch.bfloat16), ("fp32", None)):
         kernel = lambda: fused_resblock.fused_resblock1(x, **a, compute_dtype=cd)
         plain = lambda: fused_resblock.fused_resblock1_plain(x, **a, compute_dtype=cd)
         with no_tf32() if cd is None else contextlib.nullcontext():
-            p1, k1, k2, p2 = (cuda_times(f, 10) for f in (plain, kernel, kernel, plain))
+            p1, k1, k2, p2 = (cuda_times(f, 10, TIME_PER) for f in (plain, kernel, kernel, plain))
         ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
         flops = fused_resblock.resblock_flops(1, 61440, 32, a["kernel_size"], a["dilations"])
         nbytes = 4 * (2 * x.numel() + sum(t.numel() for t in a["kernels"] + a["biases"]))
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-        res_rows[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-                              bound_by="operations" if t_ops >= t_bytes else "bytes")
+        row = res_rows[mode] = dict(ms=ms, plain_ms=plain_ms, **bound(flops, nbytes, mode))
         print(f"  fused_resblock1 {mode} B=1 T=61440 C=32 k=11 ms={ms:.4f} plain_ms="
-              f"{plain_ms:.4f} bound_ms={max(t_ops, t_bytes):.4f} ({flops / 1e9:.2f} GFLOP, "
+              f"{plain_ms:.4f} bound_ms={row['bound_ms']:.4f} ({flops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.2f} MB) achieved={flops / ms / 1e9:.2f} TFLOP/s library_ms=none "
               f"(no single PyTorch call computes a ResBlock1)", flush=True)
     B5, T5, C5, K5 = 8, 122880, 32, 11
@@ -1221,29 +1271,27 @@ def main() -> int:
     x32 = torch.randn(B5, T5, C5, generator=g).to(dev)
     w32c = (torch.randn(K5, C5, C5, generator=g) / math.sqrt(K5 * C5)).to(dev)
     conv_rows = {}
-    for mode, dt, peak in (("fp32", torch.float32, PEAK_FP32), ("bf16", torch.bfloat16, PEAK_BF16)):
+    for mode, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         xx, ww = x32.to(dt), w32c.to(dt)
         x_nct, w_oik = xx.transpose(1, 2).contiguous(), ww.permute(2, 1, 0).contiguous()
         kernel = lambda: narrow_conv.narrow_conv_blocked(xx, ww)
         plain = lambda: narrow_conv.narrow_conv_plain(xx, ww)
         library = lambda: torch.nn.functional.conv1d(x_nct, w_oik, padding=(K5 - 1) // 2)
         with no_tf32() if mode == "fp32" else contextlib.nullcontext():
-            p1, l1, k1, k2, l2, p2 = (cuda_times(f, 10) for f in
+            p1, l1, k1, k2, l2, p2 = (cuda_times(f, 10, TIME_PER) for f in
                                       (plain, library, kernel, kernel, library, plain))
         ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
         library_ms = statistics.median(l1 + l2)
         flops = narrow_conv.narrow_conv_flops(B5, T5, C5, K5)
         # x and w read once in their own type, the fp32 output written once
         nbytes = xx.element_size() * (xx.numel() + ww.numel()) + 4 * xx.numel()
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-        conv_rows[mode] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                               bound_ms=max(t_ops, t_bytes),
-                               bound_by="operations" if t_ops >= t_bytes else "bytes")
+        row = conv_rows[mode] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                     **bound(flops, nbytes, mode))
         print(f"  narrow_conv {mode} B={B5} T={T5} C={C5} k={K5} ms={ms:.4f} plain_ms="
               f"{plain_ms:.4f} library_ms={library_ms:.4f} (F.conv1d, {mode}) bound_ms="
-              f"{max(t_ops, t_bytes):.4f} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
+              f"{row['bound_ms']:.4f} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
               f"achieved={flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s = "
-              f"{max(t_ops, t_bytes) / ms:.3f} of the bound", flush=True)
+              f"{row['bound_ms'] / ms:.3f} of the bound", flush=True)
     del x32, w32c, xx, ww, x_nct, w_oik
     print(f"  train step B={TRAIN_BATCH} median_ms={statistics.median(step_ms[1:]):.1f} "
           f"(steps 2-{TRAIN_STEPS}, host clock, default TF32) first_ms={step_ms[0]:.1f}",
@@ -1260,22 +1308,21 @@ def main() -> int:
     print_profile(f"train step B={TRAIN_BATCH}", *prof)
     say("profile", t0)
 
-    serving = rows[0]
     # launches on the main paths (serve, serve_wide, train, trainer), each counted from
     # zero just before its path ran
     main_counts = {n: serve_counts[n] + wide_counts[n] + train_counts[n] + trainer_counts[n]
                    for n in serve_counts}
     print(f"  main-path launches: {main_counts}; launches in the kernel phases: "
           f"{phase_launches}", flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "fused_tail_stage", "route": "cuda",
+    print(json.dumps({"kernels": [*[{
+        "name": f"fused_tail_stage[{mode} {shape}]", "route": "cuda",
         "source": "ttscube_tpu_torch/csrc/fused_tail_stage.cu",
         "replaces": "ttscube_tpu/ops/pallas_resblock.py:295",
         "launches": main_counts["fused_tail_stage"],
-        "max_abs_err": errs[("bf16", 1, 256)],
-        "ms": serving["ms"], "plain_ms": serving["plain_ms"],
-        "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"],
-        "library_ms": None}, {
+        "max_abs_err": errs[err_key], **b1_rows[(mode, shape)], "library_ms": None}
+        for mode, shape, err_key in (
+            ("bf16", "B=1 F=256", ("bf16", 1, 256)),
+            ("fp32", f"B={TRAIN_BATCH} T_in={TRAIN_T_IN}", ("fp32", TRAIN_BATCH, "train")))], {
         "name": "fused_tail_stage_grad", "route": "cuda",
         "source": "ttscube_tpu_torch/csrc/fused_tail_stage_grad.cu",
         "replaces": "ttscube_tpu/ops/pallas_resblock.py:664",

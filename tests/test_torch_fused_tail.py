@@ -69,6 +69,31 @@ def test_tail_flops_counts_the_v1_stage():
     assert fused_tail.tail_flops(1, 1, C_IN, KS, DILS) == 4 * 262_592
 
 
+@pytest.mark.parametrize("chains,bf16,want", [
+    # v1: the fp32 form's passes are B2's forward recompute, item for item
+    ((KS, DILS), False, {"conv_d": 59_520, "conv_1": 58_992}),
+    ((KS, DILS), True, {"conv_d": 9_920, "conv_1": 9_832}),
+    # the JAX tail test's chains; one chain of 1 tap: 17 items over the 262 rows
+    (((3, 7), ((1, 3), (1, 3, 5))), True, {"conv_d": 4_008, "conv_1": 4_008}),
+    (((1,), ((1,),)), True, {"conv_d": 136, "conv_1": 136}),
+    (((1,), ((1,),)), False, {"conv_d": 816, "conv_1": 816}),
+])
+def test_tail_mma_counts_per_tile(chains, bf16, want):
+    """The mma.sync instructions of one B1 tile: items of 16 rows x 32 channels, k taps
+    each, 8 MMAs a tap in bf16 (m16n8k16) and 48 in fp32 (m16n8k8, 3 products). At v1
+    the fp32 form's equal B2's forward phases, and the bf16 form runs 1/6 as many, each
+    twice as deep: 19,752 per tile, 1.22 x the tile's counted MRF operations (the halo
+    rows each conv still needs, and its rows rounded up to 16)."""
+    got = fused_tail.tail_mma_counts(*chains, bf16=bf16)
+    assert got == want
+    if chains == (KS, DILS) and not bf16:
+        grad = fused_tail.tail_grad_mma_counts(KS, DILS)
+        assert got == {"conv_d": grad["forward conv_d"], "conv_1": grad["forward conv_1"]}
+    if chains == (KS, DILS) and bf16:
+        mrf_per_tile = 2 * 129_024 * fused_tail.LIMITS["tile"]
+        assert round(sum(got.values()) * 2 * 16 * 8 * 16 / mrf_per_tile, 2) == 1.22
+
+
 def test_wrapper_refuses_other_devices():
     c = _case(1, 16, seed=1)
     z, w = _torch_args(c)

@@ -96,6 +96,40 @@ def test_fused_tail_kernel_refuses_what_it_cannot_run(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,T_in,c_in,ks,dils,bf16", [
+    # the training shapes: B = 16 windows of 3,000 input rows, and the trainer's B = 4
+    # with a last tile that is cut
+    (16, 3000, 64, KS, DILS, False), (4, 2999, 64, KS, DILS, False),
+    # the most input channels and a k = 15 chain, whose fp32 weights are staged in two
+    # chunks of taps
+    (2, 301, 128, (3, 15), ((1, 2), (1, 2)), False),
+    (2, 301, 128, (3, 15), ((1, 2), (1, 2)), True),
+    # k = 31: three chunks of taps in both forms
+    (1, 500, 64, (31,), ((1,),), False), (1, 500, 64, (31,), ((1,),), True),
+])
+def test_fused_tail_kernel_edges_and_relaunches(cuda, B, T_in, c_in, ks, dils, bf16):
+    """B1 where its MMA passes meet their edges, with the limits of the test above
+    (5e-5 in fp32, TF32 off; the bf16 floor scheme with its control); two launches are
+    bit-equal in either form."""
+    args = _case(B, T_in, seed=T_in + c_in, device=cuda, ks=ks, dils=dils, c_in=c_in)
+    pack = lambda cd: fused_tail.pack_tail_weights(*args[1:], kernel_sizes=ks, dilations=dils,
+                                                   compute_dtype=cd)
+    w32 = pack(None)
+    got32, again32 = (fused_tail.fused_tail_stage(args[0], w32) for _ in range(2))
+    want32 = fused_tail.fused_tail_stage_plain(args[0], w32)
+    torch.cuda.synchronize()
+    assert got32.shape == want32.shape == (B, 4 * T_in)
+    assert torch.equal(got32, again32)
+    assert (got32 - want32).abs().max().item() <= 5e-5
+    if bf16:
+        w16 = pack(torch.bfloat16)
+        got16, again16 = (fused_tail.fused_tail_stage(args[0], w16) for _ in range(2))
+        want16 = fused_tail.fused_tail_stage_plain(args[0], w16)
+        assert torch.equal(got16, again16)
+        _check_bf16(got16, want16, got32, want32)
+
+
+@pytest.mark.gpu
 def test_serving_generator_matches_module_path_on_the_card(cuda):
     """The full v1 generator on the card: generator_apply_fused (cuDNN convs and the
     fused tail kernel, fp32) against Generator.forward (cuDNN convs only), 5e-5."""
@@ -311,6 +345,28 @@ def test_fused_mrf_kernel_matches_plain(cuda, B, T, C, chains):
     assert fused_mrf.fused_mrf1.launches == before + 3
     assert got32.shape == want32.shape == (B, T, C)
     assert torch.equal(got32, again)
+    assert (got32 - want32).abs().max().item() <= _fp32_limit(want32)
+    _check_bf16(got16, want16, got32, want32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,C", [(2, 333, 96), (1, 517, 160)])
+def test_fused_mrf_kernel_odd_channel_tiles(cuda, B, T, C):
+    """B3 at channel counts of an odd number of 32-channel tiles and a T that no
+    128-row tile divides: fp32 (TF32 off) within the MRF limit, bf16 by the floor
+    scheme; two launches bit-equal in either form."""
+    from ttscube_tpu_torch.ops import fused_mrf
+
+    x, kernels, biases = _mrf_case(B, T, C, seed=T + C, device=cuda, **V1)
+    pack = lambda cd: fused_mrf.pack_mrf_weights(kernels, biases, kernel_sizes=KS,
+                                                 dilations=DILS, compute_dtype=cd)
+    w32, w16 = pack(None), pack(torch.bfloat16)
+    got32, again32 = (fused_mrf.fused_mrf1(x, w32) for _ in range(2))
+    got16, again16 = (fused_mrf.fused_mrf1(x, w16) for _ in range(2))
+    want32, want16 = fused_mrf.fused_mrf_plain(x, w32), fused_mrf.fused_mrf_plain(x, w16)
+    torch.cuda.synchronize()
+    assert got16.shape == want16.shape == (B, T, C)
+    assert torch.equal(got32, again32) and torch.equal(got16, again16)
     assert (got32 - want32).abs().max().item() <= _fp32_limit(want32)
     _check_bf16(got16, want16, got32, want32)
 

@@ -21,11 +21,19 @@
 //
 // What bounds it on an H100: operations. 2 * C * C * sum(k) per sample (252 * C * C
 // for HiFi-GAN v1: 21 GFLOP for stage 0 at 256 frames) against 8 * C bytes in and out
-// per sample. What this design does about it, as a first simple kernel: each conv is a
-// tiled product on the fp32 CUDA cores (128 rows x 32 output channels per tile, 4 x 4
-// per thread, the input slab and the weights staged through shared memory in chunks
-// of 32 input channels), so the arithmetic is the same in fp32 and in bf16 serving.
-// Tensor cores (mma.sync / wgmma on bf16 operands) are later work.
+// per sample. What this design does about it: each conv is a tiled product, 128 rows x
+// 32 output channels per tile, the input slab and the weights staged through shared
+// memory in chunks of 32 input channels. With bf16 operands (serving) the tile runs on
+// the tensor cores (`conv_tile_mma`): an implicit GEMM on mma.sync.m16n8k16 bf16 with
+// fp32 accumulators, each of the 8 warps 16 rows x 32 channels; the slab is staged as
+// bf16 (leaky and the rounding applied once, at staging) and the weights as bf16
+// (exact: the wrapper rounded them), rows padded by BPAD elements so that ldmatrix's 8
+// row addresses fall on distinct banks; a tap is a row offset into the slab, so
+// ldmatrix reads the A fragments straight from it and ldmatrix.trans the B fragments
+// from the weights as staged, the next step's fragments loading while this step's
+// MMAs issue. With fp32 operands the tile runs on the fp32 CUDA cores
+// (`conv_tile_fp32`, 4 x 4 per thread): no main-path launch is fp32, and one-pass TF32
+// would miss its limit.
 //
 // Parallelism at the serving batch (B = 1, a few thousand rows): a tile of one row
 // block of one conv is too little work for 132 SMs if each thread block owned a row
@@ -49,9 +57,17 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_sm90.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using mma_sm90::ldsm_x4;
+using mma_sm90::ldsm_x4_trans;
+using mma_sm90::mma_bf16;
+using mma_sm90::pack_bf16;
+using mma_sm90::smem_addr;
 
 constexpr int TR = 128;               // output rows per tile
 constexpr int TC = 32;                // output channels per tile
@@ -67,10 +83,15 @@ constexpr int MAX_REACH = 64;         // (k - 1) / 2 * d of any conv
 constexpr int MAX_C = 256;
 constexpr int FOLD = 4;               // the mid form's upsample factor == its kernel size
 constexpr int MAX_C_IN = 512;         // the mid form's input channels
+constexpr int BPAD = 8;               // bf16 tile: bf16 elements of padding per staged row
+constexpr int BXS = CK + BPAD;        // bf16 tile: row stride of the staged slab
+constexpr int BWS = TC + BPAD;        // bf16 tile: row stride of the staged weights
 
 static_assert(ROW_STEP * RB == TR, "a tile is RB passes of ROW_STEP rows");
 static_assert(ROW_STEP % FOLD == 0, "a thread's rows share one upsample phase");
 static_assert(TC == CK, "channel quantum");
+static_assert(THREADS / 32 * 16 == TR && TC == 32, "bf16 tile: each warp 16 rows x 32 channels");
+static_assert(BPAD % 8 == 0, "bf16 rows stay 16-byte aligned for ldmatrix");
 
 struct Spec {
   int n_chains;
@@ -113,10 +134,98 @@ __device__ __forceinline__ float conv_in(float x) {
 // on one batch row's (T, C) slabs, rows outside [0, T) reading as zero.
 //   FIRST:  dst[t] = v           (the first conv of a pair: H)
 //   SECOND: dst[t] = res[t] + v  (the second conv: the residual stream XR)
-template <bool BF16, int MODE>
-__device__ void conv_tile(const float* src, const float* res, float* dst,
-                          const float* __restrict__ w, const float* __restrict__ bias, int k,
-                          int d, int T, int C, int r0, int c0, float* smem, int ws_off) {
+// bf16 operands, on the tensor cores: the slab [rows_in][BXS] and the weights
+// [k][CK][BWS] staged as bf16; warp w sums rows r0 + 16 w .. + 15 over all 32 channels.
+template <int MODE>
+__device__ void conv_tile_mma(const float* src, const float* res, float* dst,
+                              const float* __restrict__ w, const float* __restrict__ bias,
+                              int k, int d, int T, int C, int r0, int c0, float* smem,
+                              int ws_off) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int reach = (k - 1) / 2 * d;
+  const int rows_in = TR + 2 * reach;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);            // [rows_in][BXS]
+  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem + ws_off);  // [k][CK][BWS]
+  // A: lanes 0-15 rows 0-15 at k 0, lanes 16-31 the same rows at k 8; B (16 k x 16 n,
+  // transposed): k rows (lane & 7) + 8 ((lane >> 3) & 1) at n 8 (lane >> 4). Output
+  // row r0 + i reads slab row i + tap * d.
+  const uint32_t a_base = smem_addr(xs + (warp * 16 + (lane & 15)) * BXS + (lane >> 4) * 8);
+  const uint32_t b_base =
+      smem_addr(wsm + ((lane & 7) + ((lane >> 3) & 1) * 8) * BWS + (lane >> 4) * 8);
+  float acc[4][4] = {};
+  for (int ci0 = 0; ci0 < C; ci0 += CK) {
+    __syncthreads();  // the last chunk's (or tile's) reads of xs and wsm are done
+    for (int i = tid; i < rows_in * (CK / 4); i += THREADS) {
+      const int rr = i / (CK / 4), q = (i % (CK / 4)) * 4;
+      const int tt = r0 - reach + rr;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (tt >= 0 && tt < T)
+        v = __ldcg(reinterpret_cast<const float4*>(src + static_cast<size_t>(tt) * C + ci0 + q));
+      // conv_in<true>: leaky, then bf16 rounding (here, to nearest even, as it packs)
+      *reinterpret_cast<uint2*>(xs + rr * BXS + q) =
+          make_uint2(pack_bf16(conv_in<false>(v.x), conv_in<false>(v.y)),
+                     pack_bf16(conv_in<false>(v.z), conv_in<false>(v.w)));
+    }
+    for (int i = tid; i < k * CK * (TC / 8); i += THREADS) {
+      const int row = i / (TC / 8), q = (i % (TC / 8)) * 8;  // row: tap * CK + ci
+      const float* wp = w + (static_cast<size_t>(row / CK) * C + ci0 + row % CK) * C + c0 + q;
+      const float4 x0 = __ldg(reinterpret_cast<const float4*>(wp));
+      const float4 x1 = __ldg(reinterpret_cast<const float4*>(wp + 4));
+      *reinterpret_cast<uint4*>(wsm + row * BWS + q) =
+          make_uint4(pack_bf16(x0.x, x0.y), pack_bf16(x0.z, x0.w), pack_bf16(x1.x, x1.y),
+                     pack_bf16(x1.z, x1.w));
+    }
+    __syncthreads();
+    // a step is one tap's 16 input channels; the next step's fragments load while this
+    // step's MMAs issue
+    auto load = [&](uint32_t (&af)[4], uint32_t (&bf)[2][4], int tap, int kk) {
+      const uint32_t bp = b_base + (tap * CK + kk) * BWS * 2;
+      ldsm_x4(af, a_base + (tap * d * BXS + kk) * 2);
+      ldsm_x4_trans(bf[0], bp);
+      ldsm_x4_trans(bf[1], bp + 16 * 2);
+    };
+    auto mma = [&](const uint32_t (&af)[4], const uint32_t (&bf)[2][4]) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        mma_bf16(acc[n], af, bf[n >> 1][(n & 1) * 2], bf[n >> 1][(n & 1) * 2 + 1]);
+    };
+    static_assert(CK == 32, "a tap is two steps of 16 channels");
+    uint32_t a0[4], a1[4], b0[2][4], b1[2][4];
+    load(a0, b0, 0, 0);
+    for (int tap = 0; tap < k; ++tap) {
+      load(a1, b1, tap, 16);
+      mma(a0, b0);
+      if (tap + 1 < k) load(a0, b0, tap + 1, 0);
+      mma(a1, b1);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int co = c0 + 8 * n + 2 * t;
+    const float b0 = __ldg(bias + co), b1 = __ldg(bias + co + 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + warp * 16 + g + 8 * h;
+      if (r >= T) continue;
+      const size_t at = static_cast<size_t>(r) * C + co;
+      float2 v = make_float2(acc[n][2 * h] + b0, acc[n][2 * h + 1] + b1);
+      if constexpr (MODE == SECOND) {
+        const float2 x = __ldcg(reinterpret_cast<const float2*>(res + at));
+        v = make_float2(x.x + v.x, x.y + v.y);
+      }
+      *reinterpret_cast<float2*>(dst + at) = v;
+    }
+  }
+}
+
+// fp32 operands, on the CUDA cores: the slab [rows_in][XS] and the weights [k][CK][TC]
+// staged as fp32; each thread sums RB rows x 4 channels.
+template <int MODE>
+__device__ void conv_tile_fp32(const float* src, const float* res, float* dst,
+                               const float* __restrict__ w, const float* __restrict__ bias,
+                               int k, int d, int T, int C, int r0, int c0, float* smem,
+                               int ws_off) {
   const int tid = threadIdx.x;
   const int tx = tid % (TC / 4);
   const int ty = tid / (TC / 4);
@@ -134,7 +243,7 @@ __device__ void conv_tile(const float* src, const float* res, float* dst,
       const int rr = i / CK, cc = i % CK;
       const int t = r0 - reach + rr;
       xs[rr * XS + cc] =
-          (t >= 0 && t < T) ? conv_in<BF16>(__ldcg(src + static_cast<size_t>(t) * C + ci0 + cc))
+          (t >= 0 && t < T) ? conv_in<false>(__ldcg(src + static_cast<size_t>(t) * C + ci0 + cc))
                             : 0.f;
     }
     for (int i = tid; i < k * CK * (TC / 4); i += THREADS) {
@@ -283,12 +392,23 @@ __global__ void __launch_bounds__(THREADS, 2) mrf_kernel(Args a) {
         const int m = 2 * p + half;
         const float* wc = a.w + s.w_off[j][m];
         const float* bc = a.bias + static_cast<size_t>(s.conv[j][m]) * C;
-        if (half == 0) {
-          conv_tile<BF16, FIRST>(res, nullptr, H, wc, bc, s.k[j], s.d[j][p], T, C, rt * TR,
-                                 ct * TC, smem, a.ws_off);
+        const int dc = half == 0 ? s.d[j][p] : 1;
+        const float* in = half == 0 ? res : H;
+        float* out = half == 0 ? H : XR;
+        if constexpr (BF16) {
+          if (half == 0)
+            conv_tile_mma<FIRST>(in, nullptr, out, wc, bc, s.k[j], dc, T, C, rt * TR, ct * TC,
+                                 smem, a.ws_off);
+          else
+            conv_tile_mma<SECOND>(in, res, out, wc, bc, s.k[j], dc, T, C, rt * TR, ct * TC,
+                                  smem, a.ws_off);
         } else {
-          conv_tile<BF16, SECOND>(H, res, XR, wc, bc, s.k[j], 1, T, C, rt * TR, ct * TC, smem,
-                                  a.ws_off);
+          if (half == 0)
+            conv_tile_fp32<FIRST>(in, nullptr, out, wc, bc, s.k[j], dc, T, C, rt * TR,
+                                  ct * TC, smem, a.ws_off);
+          else
+            conv_tile_fp32<SECOND>(in, res, out, wc, bc, s.k[j], dc, T, C, rt * TR, ct * TC,
+                                   smem, a.ws_off);
         }
       }
       grid.sync();
@@ -346,11 +466,14 @@ bool parse_spec(const int* in, int C, Spec& s, int& max_k, int& max_reach) {
 
 template <bool BF16, bool UP>
 int launch(Args& a, int max_k, int max_reach, int* grid_out, cudaStream_t stream) {
-  // shared memory: the staged input slab, then the staged weights (16-byte aligned)
-  a.ws_off = ((TR + 2 * max_reach) * XS + 3) / 4 * 4;
-  const int taps = UP && FOLD > max_k ? FOLD : max_k;
-  const size_t smem = (static_cast<size_t>(a.ws_off) + static_cast<size_t>(taps) * CK * TC) *
-                      sizeof(float);
+  // shared memory: the staged input slab, then the staged weights (16-byte aligned): a
+  // conv's (bf16 [k][CK][BWS], or fp32 [k][CK][TC]) or the upsample's (fp32 [FOLD][CK][TC])
+  const int rows = TR + 2 * max_reach;
+  a.ws_off = BF16 ? rows * BXS / 2 : (rows * XS + 3) / 4 * 4;  // floats
+  const size_t conv_w = BF16 ? static_cast<size_t>(max_k) * CK * BWS * 2
+                             : static_cast<size_t>(max_k) * CK * TC * 4;
+  const size_t up_w = UP ? static_cast<size_t>(FOLD) * CK * TC * 4 : 0;
+  const size_t smem = static_cast<size_t>(a.ws_off) * 4 + (conv_w > up_w ? conv_w : up_w);
   auto kernel = mrf_kernel<BF16, UP>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));

@@ -2,8 +2,10 @@
 interface, loaded with `ctypes`.
 
 Each source `ttscube_tpu_torch/csrc/<name>.cu` becomes `lib<name>.so` in
-`ttscube_tpu_torch/_build/<name>-<hash>/`, where the hash covers the source and the
-compiler flags, so an edited source is rebuilt and an unchanged one is not. The build
+`ttscube_tpu_torch/_build/<name>-<hash>/`, where the hash covers the source, every file
+of `csrc/` it includes with `#include "…"` (such as the shared `mma_sm90.cuh`), and the
+compiler flags, so a source whose text or headers changed is rebuilt and an unchanged
+one is not. The build
 runs at first use, and `nvcc`'s output (ptxas register and spill counts) is kept in
 `nvcc.log` beside the library. Nothing here runs when the module is imported.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,10 +40,27 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list:
+    """`<name>.cu` and every file of `csrc/` it includes with `#include "…"`, directly or
+    through another such file, in the order they are first met."""
+    found, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f not in found and (CSRC / f).is_file():
+            found.append(f)
+            todo += [m.decode() for m in _INCLUDE.findall((CSRC / f).read_bytes())]
+    return found
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_ROOT / f"{name}-{key}" / f"lib{name}.so"
+    h = hashlib.sha256()
+    for f in sources(name):
+        h.update(f.encode() + b"\0" + (CSRC / f).read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 
 def _build(names: list) -> None:

@@ -34,9 +34,9 @@ from ttscube_tpu_torch.ops.fused_mrf import (chain_spec, check_chains, mrf_chain
 
 KERNEL_SOURCE = "fused_tail_stage"
 # the with_post=True form's tiling limits (csrc/fused_tail_stage.cu; checked against
-# the library when it is loaded)
+# the library when it is loaded): the output samples of a thread block's tile last
 LIMITS = {"channels": 32, "fold": 4, "post_k": 7, "max_blocks": 4, "max_dils": 4,
-          "max_halo": 61, "max_c_in": 128}
+          "max_halo": 61, "max_c_in": 128, "tile": 256}
 # the with_post=False form's limits (csrc/fused_mrf_stage.cu): those of B3's MRF
 # phases, the upsample's fold, and input channels a multiple of the quantum up to
 # `max_c_in`
@@ -242,6 +242,26 @@ def fused_tail_stage_mid(z, w: TailWeights):
 
 fused_tail_stage_mid.launches = 0
 fused_tail_stage_mid.last_grid = 0
+
+
+def tail_mma_counts(kernel_sizes, dilations, bf16: bool) -> dict:
+    """The mma.sync instructions one tile of kernel B1 runs in its conv passes, by conv
+    of the pair ("conv_d", "conv_1"): a pass deals items of 16 rows x 32 channels, each
+    k taps x (bf16) 2 steps of 16 channels x 4 n-tiles, or (fp32, 3xTF32) 4 steps of 8
+    channels x 4 n-tiles x 3 products. The passes' rows follow the halo each chain still
+    needs (csrc/fused_tail_stage.cu): the same rows as B2's forward recompute, whose
+    counts (`tail_grad_mma_counts`) the fp32 form's equal."""
+    frows = LIMITS["tile"] + LIMITS["post_k"] - 1  # the MRF output rows conv_post reads
+    per = 2 * 4 if bf16 else 4 * 4 * 3            # per 16-row item and tap
+    n = {"conv_d": 0, "conv_1": 0}
+    for k, dils in zip(kernel_sizes, dilations):
+        half = (k - 1) // 2
+        e = sum((d + 1) * half for d in dils)
+        for d in dils:  # e: the halo still needed after this pair
+            e -= (d + 1) * half
+            n["conv_d"] += -(-(frows + 2 * e + 2 * half) // 16) * k * per
+            n["conv_1"] += -(-(frows + 2 * e) // 16) * k * per
+    return n
 
 
 def tail_flops(batch: int, t_in: int, c_in: int, kernel_sizes, dilations,
