@@ -9,8 +9,9 @@ Phases, each printing one line with its seconds as it ends:
               fused_tail_stage_grad,fused_mrf_stage,narrow_conv}.cu, by plain nvcc, in
               parallel, with each one's ptxas register and spill line
   kernel      B1 (the fused tail stage) against its plain PyTorch version at serving
-              shapes, fp32 (TF32 off) and bf16 (limits below), and in fp32 at the
-              training shape (B = 16, T_in = 3,000); two launches must be bit-equal
+              shapes, fp32 (TF32 off) and bf16 (limits below), in fp32 at the training
+              shape (B = 16, T_in = 3,000), and at serve_batch's shapes (B = 128, 512
+              frames; B = 256, one window of 320 frames); two launches must be bit-equal
   kernel_mrf  B3 (a whole MRF stage) likewise, at the serving shapes of v1's stages 0
               and 1, a ragged shape and C = 32, with a witness on the CPU; two launches
               must be bit-equal
@@ -24,28 +25,49 @@ Phases, each printing one line with its seconds as it ends:
   kernel_narrow_conv  B5 (a bias-free narrow conv) against its plain version, fp32
               (TF32 off, with a TF32 control) and bf16 operands, with a witness on the
               CPU; two launches bit-equal
-  serve       TTSCube at the full Cubegan v1 width from seeded random weights answers three
-              requests; the B1 launch counter must rise by one per request; one more
-              request in fp32 (TF32 off) must match the same model run on the CPU
+  warmup      TTSCube at the full Cubegan v1 width from seeded random weights runs
+              TTSCube.warmup (B1 once per frame bucket and text length); the first
+              request after it, beside the same request in the steady state
+  serve       that TTSCube answers three requests; the B1 launch counter must rise by one
+              per request; one more request in fp32 (TF32 off) must match the same model
+              run on the CPU
   serve_wide  the same with every generator stage fused (fuse_channels 256, 128, 64, 32):
               per request B3 launches twice, B1-mid and B1 once; an fp32 request (TF32
               off) must match the CPU; in a bf16 request each fused stage, fed what the
               CPU's run of that request gave it, must meet the bf16 limits against the
               CPU's stage
+  serve_batch bench.py's serving configuration through Cubegan.infer: 128 items of 64
+              characters at 512 frames (B1 once per call), then 256 items in windows of
+              256 frames (B1 once per window): ms per batch, audio seconds per wall
+              second, the busy share; chunked against whole synthesis at 4 items, fp32
+              within 5e-5, bf16 by the floor rule, with the fused tail and with every
+              stage fused (B3 and B1-mid then meet the window edges)
   train       train_step at the full v1 width (fp32, fused_tail_train) on a batch of 16
               utterances built by CubeganCollate, five steps: finite losses, every
               partition moves, B1 and B2 launch once per step
   train_check one step on the card (TF32 off) against the same step on the CPU
+  train_bf16  the train phase's batch with bf16 convs in the generator and the
+              discriminators (no fused tail), five steps: median beside the fp32 phase's,
+              busy share, every parameter and moment still fp32; one step on the card
+              against the same bf16 step on the CPU, losses by the floor rule (the
+              floor: the card's fp32 step against its bf16 step; the witness: the CPU
+              summing its bf16 convs in fp64), parameters within 2 lr; each kind of conv
+              of the step alone, card against CPU, by the floor rule
   trainer     the port's trainer CLI (python -m ttscube_tpu_torch.scripts.train_cubegan)
               at the full v1 width (fp32, --fused-tail-train) on a seeded corpus it
               writes: 4 steps over 2 epochs, B1 and B2 once per step, every checkpoint
               file written; --resume restores the step, parameters and moments bit-equal,
               and the next step from them equals the live run's next step; the saved
               weights, slimmed to {lang, gen}, serve through TTSCube(model_path, ...) on
-              the card as the same weights do through TTSCube.from_state_dicts
+              the card as the same weights do through TTSCube.from_state_dicts; then
+              the CLI with --compute-dtype bfloat16: two steps and a save, --resume
+              bit-equal, and the next step from both bit-equal
+  generator_resblock2  a plain Generator at v1's widths with ResBlock2 (HiFi-GAN v3's
+              kernels and dilations), fp32 on the card against the CPU
   times       each kernel's median time beside its plain version's and its bound (and
               for B5 F.conv1d's): B1 in both forms at the serving shape and at the
-              training shape; and the train step's median
+              training shape, and bf16 at serve_batch's shapes; and the train step's
+              median
   profile     one served request, one with every stage fused and one train step under
               torch.profiler: device-busy share, top kernels
 
@@ -110,6 +132,15 @@ TRAIN_T_IN = 3000   # the last stage's input rows in a train step: 50 frames x 6
 TRAINER_UTTS = 8    # the trainer phase's corpus: 2 epochs of 2 steps at batch 4
 TRAINER_BATCH = 4
 TRAINER_STEPS = 4
+# serve_batch: bench.py's serving configuration (Cubegan v1, 64 phones, 8 speakers, fused
+# tail, bf16 storage): BATCH items of BATCH_CHARS characters at BATCH_FRAMES frames, one
+# warm call and BATCH_CALLS timed ones; then CHUNK_BATCH items in windows of CHUNK_FRAMES
+# frames (plus a halo of 32 on each side); the chunked-vs-whole checks at CHECK_BATCH
+BATCH, BATCH_CHARS, BATCH_FRAMES, BATCH_CALLS = 128, 64, 512, 4
+CHUNK_BATCH, CHUNK_FRAMES, CHECK_BATCH = 256, 256, 4
+# generator_resblock2: the public HiFi-GAN v3 config's residual blocks at v1's widths
+V3_BLOCKS = dict(resblock="2", resblock_kernel_sizes=(3, 5, 7),
+                 resblock_dilation_sizes=((1, 2), (2, 6), (3, 12)))
 # bf16 operands: the limits are fractions of the precision floor, the distance between
 # the plain version in bf16 and in fp32 on the same inputs, measured in each case. The
 # kernel must sit at most BF16_RMS of the floor's RMS and BF16_MAX of its max from the
@@ -310,21 +341,24 @@ def moved(w, device):
                          if isinstance(getattr(w, f), torch.Tensor)})
 
 
-def bf16_check(what: str, floor, err, ctl, wit) -> None:
-    """The bf16 limits: the kernel (err) and the witness (wit) within BF16_RMS of the
-    floor's RMS and BF16_MAX of its max, the control (ctl) not; each a (max, RMS)."""
+def bf16_check(what: str, floor, err, ctl, wit=None) -> None:
+    """The bf16 limits: the port's result (err) and the witness (wit, where there is
+    one) within BF16_RMS of the floor's RMS and BF16_MAX of its max, the control (ctl)
+    not; each a (max, RMS)."""
     within = lambda d: d[1] <= BF16_RMS * floor[1] and d[0] <= BF16_MAX * floor[0]
     print(f"  {what} limit: max<={BF16_MAX * floor[0]:.3e} rms<={BF16_RMS * floor[1]:.3e}",
           flush=True)
-    for name, d in (("floor", floor), ("kernel", err), ("control", ctl), ("witness", wit)):
+    readings = (("floor", floor), ("port", err), ("control", ctl)) + (
+        (("witness", wit),) if wit is not None else ())
+    for name, d in readings:
         print(f"  {what} {name}: max={d[0]:.3e} rms={d[1]:.3e} ({d[0] / floor[0]:.3f}, "
               f"{d[1] / floor[1]:.3f} of the floor)", flush=True)
-    check(floor[0] > 1e-4, f"{what}: bf16 operands did not move the plain version")
+    check(floor[0] > 1e-4, f"{what}: bf16 did not move the result")
     check(within(err), f"{what}: {err} is not within {BF16_RMS} (RMS) and {BF16_MAX} (max) "
                        f"of the floor {floor}")
     check(not within(ctl), f"{what}: the fp32 control passed")
-    check(within(wit), f"{what}: the limits are tighter than summation order alone allows "
-                       f"(witness {wit})")
+    check(wit is None or within(wit), f"{what}: the limits are tighter than summation order "
+                                      f"alone allows (witness {wit})")
 
 
 def check_stage_kernel(what: str, kernel, plain, x, w32, w16, tol: float = TOL_MRF,
@@ -532,6 +566,169 @@ def print_profile(what: str, wall_ms, busy_ms, by_name, n_events) -> None:
         print(f"    {ms_:9.3f} ms {n:6d}x {name[:90]}", flush=True)
 
 
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (cuDNN's among them), for a comparison that
+    must be bit-equal; a warning, not an error, where an op has none."""
+    import torch
+
+    saved = torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
+
+
+@contextlib.contextmanager
+def fp64_convs():
+    """The port's bf16 convs on the CPU (`ops/conv._mp_conv`) summing in fp64 before
+    their one rounding to bf16: another right implementation of the same rounding, the
+    witness of what summation order alone does to a bf16 result."""
+    from ttscube_tpu_torch.ops import conv as tconv
+
+    real = tconv._mp_conv
+    tconv._mp_conv = lambda conv, x, w, cd, **kw: real(
+        lambda a, b, **k: conv(a.double(), b.double(), **k).float(), x, w, cd, **kw)
+    try:
+        yield
+    finally:
+        tconv._mp_conv = real
+
+
+def bf16_conv_check(name: str, module, x, device) -> None:
+    """One conv module of the bf16 step (`compute_dtype` bf16) on the card against the
+    same module on the CPU, forward and backward: its output, its input's grad and its
+    parameters' grads (the floor: the module in fp32 on the card; the control: that
+    fp32 module; the witness: the CPU's convs summing in fp64). Each within BF16_RMS of
+    the floor's RMS, and within one bf16 step at twice its largest magnitude: each is
+    one rounding to bf16 of a sum that two right implementations compute a few fp32
+    steps apart (the output before its fp32 bias, the parameters' grads before the
+    weight norm's fp32 scaling, may exceed the largest value), so a rounding may land on
+    the other neighbour; the floor's max is below one step there, which makes
+    `bf16_check`'s max limit refuse that. The witness must meet the limits and the
+    control must not."""
+    import copy
+
+    import torch
+
+    def run(mod, where, fp32=False):
+        mod = copy.deepcopy(mod).to(where)
+        if fp32:
+            mod.compute_dtype = None
+        xx = x.detach().clone().to(where).requires_grad_()
+        y = mod(xx)
+        g = torch.Generator().manual_seed(y.numel())
+        y.backward(torch.randn(y.shape, generator=g).to(where))
+        return [y.detach(), xx.grad, torch.cat([p.grad.reshape(-1) for p in mod.parameters()])]
+
+    with no_tf32():
+        card16, card32 = run(module, device), run(module, device, fp32=True)
+    with torch.backends.mkldnn.flags(enabled=False):
+        cpu16 = run(module, "cpu")
+        with fp64_convs():
+            wit = run(module, "cpu")
+    for i, what in enumerate(("output", "input grad", "parameter grads")):
+        floor = distance(card16[i], card32[i])
+        top = 2 * float(cpu16[i].abs().max())
+        max_limit = 2.0 ** (math.floor(math.log2(top)) - 7)
+        within = lambda d: d[1] <= BF16_RMS * floor[1] and d[0] <= max_limit
+        print(f"  train_bf16 {name} {what} limit: max<={max_limit:.3e} (max|cpu|="
+              f"{top / 2:.3e}) rms<={BF16_RMS * floor[1]:.3e}", flush=True)
+        readings = {"floor": floor, "card": distance(card16[i], cpu16[i]),
+                    "control": distance(card32[i], cpu16[i]), "witness": distance(wit[i], cpu16[i])}
+        for label, d in readings.items():
+            print(f"  train_bf16 {name} {what} {label}: max={d[0]:.3e} rms={d[1]:.3e} "
+                  f"({d[0] / floor[0]:.3f}, {d[1] / floor[1]:.3f} of the floor)", flush=True)
+        check(floor[0] > 1e-4, f"train_bf16 {name} {what}: bf16 did not move the result")
+        check(within(readings["card"]), f"train_bf16 {name} {what}: the card is off the CPU")
+        check(not within(readings["control"]), f"train_bf16 {name} {what}: the control passed")
+        check(within(readings["witness"]), f"train_bf16 {name} {what}: the limits are tighter "
+                                            "than summation order alone allows")
+
+
+def batch_inputs(n_items: int, seed: int, device) -> dict:
+    """bench.py's serving batch: n_items texts of BATCH_CHARS seeded characters from 63
+    phones, seeded speakers of 7."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return {"x_char": torch.from_numpy(rng.integers(1, 64, (n_items, BATCH_CHARS))).to(device),
+            "x_speaker": torch.from_numpy(rng.integers(1, 8, (n_items, 1))).to(device)}
+
+
+def serve_batches(model, n_items: int, chunk, device) -> dict:
+    """bench.py's measurement through `Cubegan.infer`: one warm call, then
+    BATCH_CALLS timed calls (host clock to the audio's mean on the host), each on
+    fresh characters, under the default TF32 settings; launches counted from zero over
+    all of them. Returns the times, the rate and the counts."""
+    import statistics
+
+    import torch
+
+    inputs = [batch_inputs(n_items, SEED + 10 + i, device) for i in range(1 + BATCH_CALLS)]
+    torch.cuda.synchronize()
+    zero_counts()
+    ms = []
+    for X in inputs:
+        t1 = time.perf_counter()
+        audio, _ = model.infer(X, max_frames=BATCH_FRAMES, chunk_frames=chunk)
+        level = float(audio.abs().mean())  # to the host: the call has ended
+        ms.append((time.perf_counter() - t1) * 1e3)
+        check(audio.shape == (n_items, BATCH_FRAMES * HOP) and math.isfinite(level)
+              and bool(torch.isfinite(audio).all()),
+              f"serve_batch B={n_items}: audio {tuple(audio.shape)} or not finite")
+    counts = read_counts()
+    median = statistics.median(ms[1:])
+    return dict(ms=ms, median_ms=median, counts=counts,
+                rate=n_items * BATCH_FRAMES * HOP / 24000 / (median / 1e3))
+
+
+def chunk_check(what: str, model16, model32, X, chunk: int) -> dict:
+    """Chunked against whole synthesis on the same items (TF32 off, so that both take
+    the same durations): fp32 within TOL_FP32, bf16 storage by `bf16_check`, every
+    output finite, two chunked runs bit-equal. Under PyTorch's deterministic algorithms:
+    by default cuDNN may run a transposed conv (the upsamples) with atomic adds, and two
+    runs then differ in the last bits, which bf16 storage carries on (printed first).
+    Returns the chunked runs' launches."""
+    import torch
+
+    with no_tf32():
+        a, b = (model16.infer(X, max_frames=BATCH_FRAMES, chunk_frames=chunk)[0]
+                for _ in range(2))
+        print(f"  {what} bf16 chunked, two runs under the default cuDNN settings: "
+              f"max_abs_diff={distance(a, b)[0]:.3e}", flush=True)
+    with no_tf32(), deterministic():
+        whole32, whole16 = (m.infer(X, max_frames=BATCH_FRAMES)[0] for m in (model32, model16))
+        before = read_counts()
+        chunk32, chunk16 = (m.infer(X, max_frames=BATCH_FRAMES, chunk_frames=chunk)[0]
+                            for m in (model32, model16))
+        launches = {n: v - before[n] for n, v in read_counts().items()}
+        again32, again16 = (m.infer(X, max_frames=BATCH_FRAMES, chunk_frames=chunk)[0]
+                            for m in (model32, model16))
+        torch.cuda.synchronize()
+    for a in (whole32, whole16, chunk32, chunk16):
+        check(a.shape == whole32.shape and bool(torch.isfinite(a).all()),
+              f"{what}: audio {tuple(a.shape)} or not finite")
+    check(torch.equal(chunk32, again32) and torch.equal(chunk16, again16),
+          f"{what}: two chunked runs differ")
+    err = distance(chunk32, whole32)[0]
+    print(f"  {what} fp32 chunked vs whole max_abs_err={err:.3e} tol={TOL_FP32:.0e} "
+          f"bit_equal_relaunch=True launches={launches}", flush=True)
+    check(err <= TOL_FP32, f"{what} fp32: chunked differs from whole by {err:.3e}")
+    bf16_check(f"{what} bf16 chunked vs whole", distance(whole16, whole32),
+                distance(chunk16, whole16), distance(chunk32, whole16))
+    return launches
+
+
+def relative_losses(met: dict, ref: dict) -> list:
+    """A step's losses relative to the reference step's, in a fixed order."""
+    return [met[k] / abs(ref[k]) for k in sorted(ref)]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -617,6 +814,30 @@ def main() -> int:
         print(f"  fused_tail_stage fp32 B={TRAIN_BATCH} T_in={TRAIN_T_IN} max_abs_err={err:.3e} "
               f"tol={TOL_FP32:.0e} bit_equal_relaunch=True", flush=True)
         check(err <= TOL_FP32, f"fused_tail_stage fp32 training shape: max abs err {err:.3e}")
+        del z, got32, again32, want32
+        # serve_batch's shapes: the whole batch and one chunked window; bf16 without a CPU
+        # witness (the plain version on the CPU would take minutes here)
+        for batch, frames in ((BATCH, BATCH_FRAMES), (CHUNK_BATCH, CHUNK_FRAMES + 64)):
+            z = tail_input(batch, frames, seed=frames, device=dev)
+            got32, got16, again16 = (fused_tail.fused_tail_stage(z, w) for w in (w32, w16, w16))
+            want32 = fused_tail.fused_tail_stage_plain(z, w32)
+            want16 = fused_tail.fused_tail_stage_plain(z, w16)
+            torch.cuda.synchronize()
+            case = f"B={batch} F={frames} (z {tuple(z.shape)})"
+            check(torch.equal(got16, again16), f"fused_tail_stage {case}: two launches differ")
+            for got in (got32, got16):
+                check(got.shape == want32.shape == (batch, 4 * z.shape[1])
+                      and bool(torch.isfinite(got).all()), f"fused_tail_stage {case}: shape")
+            err = errs[("fp32", batch, frames)] = distance(got32, want32)[0]
+            print(f"  fused_tail_stage fp32 {case} max_abs_err={err:.3e} tol={TOL_FP32:.0e}",
+                  flush=True)
+            check(err <= TOL_FP32, f"fused_tail_stage fp32 {case}: max abs err {err:.3e}")
+            err = distance(got16, want16)
+            errs[("bf16", batch, frames)] = err[0]
+            bf16_check(f"fused_tail_stage bf16 {case}", distance(want16, want32), err,
+                        distance(got32, want16))
+            del z, got32, got16, again16, want32, want16
+        torch.cuda.empty_cache()
     say("kernel", t0, checks=len(errs))
 
     # -- kernel_mrf -----------------------------------------------------------------
@@ -797,7 +1018,7 @@ def main() -> int:
     phase_launches = {"fused_resblock1": fused_resblock.fused_resblock1.launches,
                       "narrow_conv_blocked": narrow_conv.narrow_conv_blocked.launches}
 
-    # -- serve --------------------------------------------------------------------
+    # -- warmup -------------------------------------------------------------------
     from ttscube_tpu_torch.api import TTSCube, config_from_yaml, phonemizer_config
     from ttscube_tpu_torch.data.encodings import CubeganEncodings, PhonemizerEncodings
     from ttscube_tpu_torch.models.cubegan import Cubegan
@@ -812,7 +1033,37 @@ def main() -> int:
     cfg = config_from_yaml({}, enc)  # serving defaults: fused tail, bf16 storage
     state = init_random(Cubegan(cfg), SEED).state_dict()
     cube = TTSCube.from_state_dicts(cfg, enc, penc, state, pstate, device="cuda")
-    cube("warm up.", speaker=speaker)  # first-call set-up (cuDNN handles, kernel load)
+    torch.cuda.synchronize()
+    zero_counts()
+    t1 = time.perf_counter()
+    cube.warmup(speaker=speaker)  # its default buckets: 256 and 512 frames, ~32 and ~64 chars
+    warm_s = time.perf_counter() - t1
+    warm_counts = read_counts()
+    check(warm_counts == dict(fused_tail_stage=4, fused_mrf1=0, fused_tail_stage_mid=0,
+                              fused_tail_stage_grad=0, fused_resblock1=0,
+                              narrow_conv_blocked=0), f"warmup launches {warm_counts}")
+    # the first request after warmup (its bucket, 256 frames, was warmed), then the same
+    # request three more times
+    lat = []
+    for _ in range(4):
+        t1 = time.perf_counter()
+        cube(REQUESTS[0], speaker=speaker)
+        lat.append((time.perf_counter() - t1) * 1e3)
+    print(f"  TTSCube.warmup {warm_s:.3f} s (the kernels were built and loaded in the build "
+          f"phase); request chars={len(REQUESTS[0])}: first after warmup ms={lat[0]:.1f}, "
+          f"steady state (next 3) ms={', '.join(f'{v:.1f}' for v in lat[1:])}", flush=True)
+    t1 = time.perf_counter()
+    cube.warmup(speaker=speaker)
+    print(f"  TTSCube.warmup again: {time.perf_counter() - t1:.3f} s", flush=True)
+    # where a first request's time goes: another text length, first and second time
+    for i in range(2):
+        print_profile(f"request of a new text length, call {i + 1}",
+                      *device_profile(lambda: cube("a new request.", speaker=speaker)))
+    say("warmup", t0, warmup_s=f"{warm_s:.3f}", first_ms=f"{lat[0]:.1f}",
+        steady_ms=f"{statistics.median(lat[1:]):.1f}", launches=warm_counts["fused_tail_stage"])
+
+    # -- serve --------------------------------------------------------------------
+    t0 = time.perf_counter()
     torch.cuda.synchronize()
     zero_counts()
     served = []
@@ -924,11 +1175,64 @@ def main() -> int:
         launches_b1_mid=wide_counts["fused_tail_stage_mid"],
         launches_b1=wide_counts["fused_tail_stage"])
 
-    # -- train ----------------------------------------------------------------------
+    # -- serve_batch ----------------------------------------------------------------
     import copy
+    import dataclasses
 
     from ttscube_tpu_torch.models import cubegan as tcg
+    from ttscube_tpu_torch.models.languasito import LanguasitoConfig
 
+    t0 = time.perf_counter()
+    bcfg = tcg.CubeganConfig(
+        languasito=LanguasitoConfig(num_phones=64, num_speakers=8, max_pitch=400,
+                                    max_duration=100),
+        hifigan=HifiganConfig(fused_tail=True, storage_dtype="bfloat16"))
+    bmodel = init_random(tcg.Cubegan(bcfg), SEED + 6).to(dev).eval()
+    batch_runs = {}
+    for label, n_items, chunk in (("whole", BATCH, None), ("chunked", CHUNK_BATCH, CHUNK_FRAMES)):
+        run = batch_runs[label] = serve_batches(bmodel, n_items, chunk, dev)
+        windows = 1 if chunk is None else -(-BATCH_FRAMES // chunk)
+        want = dict(fused_tail_stage=(1 + BATCH_CALLS) * windows, fused_mrf1=0,
+                    fused_tail_stage_mid=0, fused_tail_stage_grad=0, fused_resblock1=0,
+                    narrow_conv_blocked=0)
+        check(run["counts"] == want, f"serve_batch {label} launches {run['counts']}, want {want}")
+        X = batch_inputs(n_items, SEED + 30, dev)
+        wall, busy, by_name, n_ev = device_profile(
+            lambda: float(bmodel.infer(X, max_frames=BATCH_FRAMES, chunk_frames=chunk)[0]
+                          .abs().mean()))
+        run["busy_share"] = busy / wall if busy > 0 else None
+        print(f"  serve_batch {label} B={n_items} frames={BATCH_FRAMES} chunk_frames={chunk}: "
+              f"ms per batch {', '.join(f'{v:.1f}' for v in run['ms'])} (first: warm call), "
+              f"median {run['median_ms']:.1f}; audio s per wall s {run['rate']:.1f}; "
+              f"B1 launches {run['counts']['fused_tail_stage']} ({windows} per call)",
+              flush=True)
+        print_profile(f"serve_batch {label} B={n_items}", wall, busy, by_name, n_ev)
+        del X
+    # chunked against whole at CHECK_BATCH items, with the fused tail and with every
+    # stage fused (B3 and B1-mid then meet the window edges too)
+    X4 = batch_inputs(CHECK_BATCH, SEED + 40, dev)
+    chunk_launches = {}
+    for label, fuse in (("tail", (32,)), ("wide", WIDE)):
+        models = []
+        for storage in ("bfloat16", "float32"):
+            h = dataclasses.replace(bcfg.hifigan, storage_dtype=storage, fuse_channels=fuse)
+            m = tcg.Cubegan(dataclasses.replace(bcfg, hifigan=h)).to(dev).eval()
+            m.load_state_dict(bmodel.state_dict())
+            models.append(m)
+        chunk_launches[label] = chunk_check(f"serve_batch check {label} B={CHECK_BATCH}",
+                                            *models, X4, CHUNK_FRAMES)
+    check(chunk_launches["wide"]["fused_mrf1"] > 0
+          and chunk_launches["wide"]["fused_tail_stage_mid"] > 0
+          and chunk_launches["tail"]["fused_tail_stage"] > 0,
+          f"serve_batch checks: launches {chunk_launches}")
+    del models, m, bmodel, X4
+    torch.cuda.empty_cache()
+    say("serve_batch", t0, ms_b128=f"{batch_runs['whole']['median_ms']:.1f}",
+        ms_b256_chunked=f"{batch_runs['chunked']['median_ms']:.1f}",
+        launches_b1=batch_runs["whole"]["counts"]["fused_tail_stage"]
+        + batch_runs["chunked"]["counts"]["fused_tail_stage"])
+
+    # -- train ----------------------------------------------------------------------
     t0 = time.perf_counter()
     tcfg = tcg.CubeganConfig(languasito=cfg.languasito,
                              hifigan=HifiganConfig(fused_tail_train=True))  # v1, fp32
@@ -994,6 +1298,119 @@ def main() -> int:
     check(worst_loss <= TOL_LOSS, f"train_check: losses differ by {worst_loss:.3e} relative")
     check(over == 0 and far <= 1e-3 * total, "train_check: parameters differ")
     say("train_check", t0)
+
+    # -- train_bf16 -------------------------------------------------------------------
+    t0 = time.perf_counter()
+    dtypes = lambda c, cd: dataclasses.replace(c, hifigan=dataclasses.replace(
+        c.hifigan, compute_dtype=cd, fused_tail_train=False), disc_compute_dtype=cd)
+    tcfg16 = dtypes(tcfg, "bfloat16")
+    model16 = tcg.Cubegan(tcfg16, train=True)
+    model16.load_state_dict(model0.state_dict())
+    state16 = tcg.create_train_state(model16.to(dev), seed=SEED)
+    firsts = {top: next(p for n, p in state16.model.named_parameters()
+                        if n.startswith(top + ".") and p.requires_grad) for top in tops}
+    before = {top: p.detach().clone() for top, p in firsts.items()}
+    torch.cuda.synchronize()
+    zero_counts()
+    step16_ms = []
+    for step in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        _, met = tcg.train_step(state16, tb)
+        torch.cuda.synchronize()
+        step16_ms.append((time.perf_counter() - t1) * 1e3)
+        met = {k: v.item() for k, v in met.items()}
+        check(all(math.isfinite(v) for v in met.values()), f"bf16 train step {step}: {met}")
+        print(f"  train_bf16 step {step} B={TRAIN_BATCH} ms={step16_ms[-1]:.1f} "
+              + " ".join(f"{k}={v:.4f}" for k, v in sorted(met.items())), flush=True)
+    bf16_counts = read_counts()
+    check(all(v == 0 for v in bf16_counts.values()), f"train_bf16 launches {bf16_counts}: "
+          "the bf16 step runs no fused kernel")
+    for top in tops:
+        check(not torch.equal(firsts[top].detach(), before[top]), f"train_bf16: {top} did "
+                                                                   "not move")
+    moments = [v for opt in state16.optimizers.values() for st_ in opt.state.values()
+               for v in st_.values() if isinstance(v, torch.Tensor) and v.dim() > 0]
+    check(all(p.dtype == torch.float32 for p in state16.model.parameters()) and moments
+          and all(v.dtype == torch.float32 for v in moments),
+          "train_bf16: a parameter or an optimizer moment is not fp32")
+    check(state16.model.gen.conv_pre.compute_dtype == state16.model.mpd.p2.conv_0.compute_dtype
+          == state16.model.msd.s0.conv_0.compute_dtype == torch.bfloat16,
+          "train_bf16: the convs do not run in bf16")
+    wall, busy, by_name, n_ev = device_profile(lambda: tcg.train_step(state16, tb))
+    print_profile(f"train_bf16 step B={TRAIN_BATCH}", wall, busy, by_name, n_ev)
+    bf16_busy = busy / wall if busy > 0 else None
+    print(f"  train step B={TRAIN_BATCH} host-clock median of steps 2-{TRAIN_STEPS}: bf16 "
+          f"{statistics.median(step16_ms[1:]):.1f} ms, fp32 (fused tail, train phase) "
+          f"{statistics.median(step_ms[1:]):.1f} ms; first bf16 step {step16_ms[0]:.1f} ms",
+          flush=True)
+    # one bf16 step on the card against the same step on the CPU (TF32 off: the text
+    # model's fp32 matmuls in full), the floor the card's fp32 step against its bf16 step
+    runs16 = {}
+    for label, where, c in (("card bf16", "cuda", tcfg16), ("card fp32", "cuda",
+                                                           dtypes(tcfg, "float32")),
+                            ("cpu bf16", "cpu", tcfg16), ("witness", "cpu", tcfg16)):
+        m = tcg.Cubegan(c, train=True)
+        m.load_state_dict(model0.state_dict())
+        st = tcg.create_train_state(m.to(where), seed=SEED)
+        ctx = no_tf32() if where == "cuda" else torch.backends.mkldnn.flags(enabled=False)
+        t1 = time.perf_counter()
+        # the witness: the CPU's bf16 step with its convs summing in fp64
+        with ctx, fp64_convs() if label == "witness" else contextlib.nullcontext():
+            _, met = tcg.train_step(st, tcg.batch_to_torch(small, where), starts=starts)
+        runs16[label] = ({k: v.item() for k, v in met.items()},
+                         {n: p.detach().cpu() for n, p in st.model.named_parameters()},
+                         (time.perf_counter() - t1) * 1e3,
+                         torch.cat([p.grad.detach().cpu().reshape(-1)
+                                    for p in st.model.parameters() if p.requires_grad]))
+        del m, st
+    ref = runs16["card fp32"][0]
+    rel = {k: torch.tensor(relative_losses(v[0], ref), dtype=torch.float64)
+           for k, v in runs16.items()}
+    bf16_check("train_bf16 losses, card vs CPU (relative to the card's fp32 step)",
+               distance(rel["card bf16"], rel["card fp32"]),
+               distance(rel["card bf16"], rel["cpu bf16"]),
+               distance(rel["card fp32"], rel["cpu bf16"]),
+               distance(rel["witness"], rel["cpu bf16"]))
+    # grads and parameters: a bf16 rounding that flips with the summation order changes
+    # what every later layer rounds, so through the whole step's depth two right
+    # implementations (the witness) sit about half the floor apart in the grads, and a
+    # grad near zero takes either sign: printed beside the floor, not held to the bf16
+    # limits; each parameter within 2 lr plus rounding of the CPU's (the first Adam step
+    # moves it by about lr·sign(g))
+    grads = {k: v[3] for k, v in runs16.items()}
+    g_floor = distance(grads["card bf16"], grads["card fp32"])
+    for name, (a, b) in (("port", ("card bf16", "cpu bf16")),
+                         ("control", ("card fp32", "cpu bf16")),
+                         ("witness", ("witness", "cpu bf16"))):
+        d = distance(grads[a], grads[b])
+        print(f"  train_bf16 grads {name}: max={d[0]:.3e} rms={d[1]:.3e} ({d[0] / g_floor[0]:.3f}, "
+              f"{d[1] / g_floor[1]:.3f} of the floor max={g_floor[0]:.3e} rms={g_floor[1]:.3e})",
+              flush=True)
+    worst_p, over, far, total = param_distance(runs16["card bf16"][1], runs16["cpu bf16"][1], lr)
+    _, _, f_far, _ = param_distance(runs16["card bf16"][1], runs16["card fp32"][1], lr)
+    _, _, c_far, _ = param_distance(runs16["card fp32"][1], runs16["cpu bf16"][1], lr)
+    _, _, w_far, _ = param_distance(runs16["witness"][1], runs16["cpu bf16"][1], lr)
+    print(f"  train_bf16 one step B=2 card vs CPU: card_ms={runs16['card bf16'][2]:.1f} "
+          f"cpu_ms={runs16['cpu bf16'][2]:.1f}; params max {worst_p / lr:.4f} lr, {over} beyond "
+          f"2 lr + rounding; beyond 0.01 lr (stepped the other way) of {total}: port {far}, "
+          f"floor {f_far}, control {c_far}, witness {w_far}", flush=True)
+    check(over == 0, "train_bf16: parameters differ from the CPU's by more than 2 lr")
+    del runs16, grads
+    # each kind of conv of the bf16 step alone, at the step's widths: where the card's
+    # cuDNN rounds against where the CPU's route rounds
+    g = torch.Generator().manual_seed(SEED + 8)
+    mods = state16.model
+    for name, module, shape in (("gen.res_3_0.WNConv1d_0", mods.gen.res_3_0.WNConv1d_0,
+                                 (2, 12000, 32)),
+                                ("gen.up_1 (transposed)", mods.gen.up_1, (2, 750, 256)),
+                                ("mpd.p2.conv_2 (WNConv2d)", mods.mpd.p2.conv_2,
+                                 (2, 128, 667, 2)),
+                                ("msd.s0.conv_3 (SNConv1d, groups 16)", mods.msd.s0.conv_3,
+                                 (2, 3000, 256)),
+                                ("msd.s1.conv_1 (groups 4)", mods.msd.s1.conv_1, (2, 6000, 128))):
+        bf16_conv_check(name, module, torch.randn(shape, generator=g), dev)
+    say("train_bf16", t0, steps=TRAIN_STEPS, median_ms=f"{statistics.median(step16_ms[1:]):.1f}",
+        busy_share=f"{bf16_busy:.3f}" if bf16_busy else "not measured")
 
     # -- trainer ----------------------------------------------------------------------
     import os
@@ -1126,9 +1543,65 @@ def main() -> int:
           f"CLI --resume {resume_s:.2f} s; files (bytes): "
           + ", ".join(f"{k} {v}" for k, v in files.items()), flush=True)
     del from_files, from_sd
+    # the CLI in bf16 (no fused tail): two steps and a save, --resume, and the next step
+    # from the live state and from the resumed one, under deterministic algorithms
+    base16 = str(work / "out16" / "cubegan")
+    argv16 = ["--train-folder", str(corpus), "--dev-folder", str(corpus), "--output-base",
+              base16, "--batch-size", str(TRAINER_BATCH), "--max-steps", "2", "--max-epochs",
+              "1", "--epoch-generation", "0", "--compute-dtype", "bfloat16"]
+    torch.cuda.synchronize()
+    zero_counts()
+    t1 = time.perf_counter()
+    live16 = train_cubegan.main(argv16)
+    torch.cuda.synchronize()
+    cli16_s = time.perf_counter() - t1
+    trainer16_counts = read_counts()
+    check(live16.step == 2 and all(v == 0 for v in trainer16_counts.values())
+          and os.path.exists(base16 + ".opt.last"),
+          f"bf16 trainer: step {live16.step}, launches {trainer16_counts}")
+    check(live16.model.config.hifigan.compute_dtype == live16.model.config.disc_compute_dtype
+          == "bfloat16" and all(p.dtype == torch.float32 for p in live16.model.parameters()),
+          "bf16 trainer: the config or the parameters' type")
+    resumed16 = train_cubegan.main(argv16 + ["--resume", "--max-epochs", "0"])
+    check(resumed16.step == 2 and same_train_state(live16, resumed16),
+          "bf16 trainer: --resume did not restore the state bit-equal")
+    nb16 = tcg.batch_to_torch(CubeganCollate(CubeganEncodings(base16 + ".encodings"))(
+        [ds[i] for i in range(TRAINER_BATCH)]), dev)
+    with deterministic():
+        _, m_live = tcg.train_step(live16, nb16)
+        _, m_back = tcg.train_step(resumed16, nb16)
+    equal = (all(torch.equal(v, m_back[k]) for k, v in m_live.items())
+             and same_train_state(live16, resumed16))
+    print(f"  bf16 trainer CLI (--compute-dtype bfloat16): {cli16_s:.1f} s for 2 steps, launches "
+          f"{trainer16_counts}; --resume bit-equal; next step from both bit-equal: {equal}",
+          flush=True)
+    check(equal, "bf16 trainer: the resumed state's next step differs from the live one's")
+    del live16, resumed16, nb16
     shutil.rmtree(work)
     say("trainer", t0, steps=TRAINER_STEPS, launches_b1=trainer_counts["fused_tail_stage"],
-        launches_b2=trainer_counts["fused_tail_stage_grad"])
+        launches_b2=trainer_counts["fused_tail_stage_grad"], bf16_steps=2)
+
+    # -- generator_resblock2 ------------------------------------------------------------
+    t0 = time.perf_counter()
+    gen2 = init_random(Generator(HifiganConfig(**V3_BLOCKS)), SEED + 7).eval()
+    mel = torch.randn(1, 64, 80, generator=torch.Generator().manual_seed(64))
+    with torch.no_grad():
+        want = gen2(mel)
+        gen2.to(dev)
+        with no_tf32(), deterministic():  # cuDNN's transposed convs, see chunk_check
+            got, again = gen2(mel.to(dev)), gen2(mel.to(dev))
+        torch.cuda.synchronize()
+    check(got.shape == want.shape == (1, 64 * HOP) and bool(torch.isfinite(got).all())
+          and torch.equal(got, again), f"generator_resblock2: {tuple(got.shape)}, finite, "
+                                       "relaunch")
+    err = distance(got, want)[0]
+    print(f"  ResBlock2 Generator (v1 widths, kernels {V3_BLOCKS['resblock_kernel_sizes']}, "
+          f"dilations {V3_BLOCKS['resblock_dilation_sizes']}) fp32 card vs CPU F=64 "
+          f"max_abs_err={err:.3e} tol={TOL_FP32:.0e} peak={float(want.abs().max()):.3f}",
+          flush=True)
+    check(err <= TOL_FP32, f"generator_resblock2: card differs from the CPU by {err:.3e}")
+    del gen2
+    say("generator_resblock2", t0)
 
     # -- times --------------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1162,6 +1635,26 @@ def main() -> int:
               f"{nbytes / 1e6:.2f} MB) achieved={flops / ms / 1e9:.2f} TFLOP/s = "
               f"{row['bound_ms'] / ms:.3f} of the bound library_ms=none (no single PyTorch "
               f"call computes this stage)", flush=True)
+    # B1 bf16 at serve_batch's shapes, as served (default TF32): the whole batch and one
+    # chunked window; fewer readings, as one launch takes tens of ms
+    for shape, batch, frames in (("B=128 F=512", BATCH, BATCH_FRAMES),
+                                 ("B=256 W=320", CHUNK_BATCH, CHUNK_FRAMES + 64)):
+        z = tail_input(batch, frames, seed=frames, device=dev)
+        kernel = lambda: fused_tail.fused_tail_stage(z, w16)
+        plain = lambda: fused_tail.fused_tail_stage_plain(z, w16)
+        p1, k1, k2, p2 = (cuda_times(f, 3, 2) for f in (plain, kernel, kernel, plain))
+        ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+        flops = fused_tail.tail_flops(batch, z.shape[1], 64, w16.kernel_sizes, w16.dilations)
+        nbytes = 4 * (z.numel() + batch * z.shape[1] * 4 + sum(t.numel() for t in w16[:6]))
+        row = b1_rows[("bf16", shape)] = dict(ms=ms, plain_ms=plain_ms,
+                                              **bound(flops, nbytes, "bf16"))
+        print(f"  fused_tail_stage bf16 {shape} (z {tuple(z.shape)}) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} ({plain_ms / ms:.2f}x the kernel's time) "
+              f"bound_ms={row['bound_ms']:.4f} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) "
+              f"achieved={flops / ms / 1e9:.2f} TFLOP/s = {row['bound_ms'] / ms:.3f} of the "
+              f"bound library_ms=none", flush=True)
+        del z
+    torch.cuda.empty_cache()
     # B2 at the training shape: the kernel (with its wrapper's packing and sums) against
     # the plain version's autograd backward (its forward's graph kept, not timed)
     leaves, dy = tail_leaves(gen, TRAIN_BATCH, 3000, seed=3000, device=dev)
@@ -1308,10 +1801,13 @@ def main() -> int:
     print_profile(f"train step B={TRAIN_BATCH}", *prof)
     say("profile", t0)
 
-    # launches on the main paths (serve, serve_wide, train, trainer), each counted from
-    # zero just before its path ran
-    main_counts = {n: serve_counts[n] + wide_counts[n] + train_counts[n] + trainer_counts[n]
-                   for n in serve_counts}
+    # launches on the main paths (warmup, serve, serve_wide, serve_batch whole and
+    # chunked, train, train_bf16, trainer in fp32 and in bf16), each counted from zero
+    # just before its path ran
+    paths = (warm_counts, serve_counts, wide_counts, batch_runs["whole"]["counts"],
+             batch_runs["chunked"]["counts"], train_counts, bf16_counts, trainer_counts,
+             trainer16_counts)
+    main_counts = {n: sum(c[n] for c in paths) for n in serve_counts}
     print(f"  main-path launches: {main_counts}; launches in the kernel phases: "
           f"{phase_launches}", flush=True)
     print(json.dumps({"kernels": [*[{
@@ -1322,6 +1818,8 @@ def main() -> int:
         "max_abs_err": errs[err_key], **b1_rows[(mode, shape)], "library_ms": None}
         for mode, shape, err_key in (
             ("bf16", "B=1 F=256", ("bf16", 1, 256)),
+            ("bf16", "B=128 F=512", ("bf16", BATCH, BATCH_FRAMES)),
+            ("bf16", "B=256 W=320", ("bf16", CHUNK_BATCH, CHUNK_FRAMES + 64)),
             ("fp32", f"B={TRAIN_BATCH} T_in={TRAIN_T_IN}", ("fp32", TRAIN_BATCH, "train")))], {
         "name": "fused_tail_stage_grad", "route": "cuda",
         "source": "ttscube_tpu_torch/csrc/fused_tail_stage_grad.cu",

@@ -605,3 +605,137 @@ def test_trainer_resumes_on_the_card(cuda, tmp_path):
     _, m_back = tcg.train_step(restored, batch)
     for k, v in m_live.items():
         assert abs(m_back[k].item() - v.item()) <= 1e-4 * abs(v.item()), k
+
+
+# -- batched and chunked serving, bf16 training ----------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,frames", [(128, 512), (256, 320)], ids=["B128 F512", "B256 W320"])
+def test_fused_tail_kernel_at_the_batched_serving_shapes(cuda, B, frames):
+    """B1 at the serving batch of bench.py (128 items of 512 frames: z (128, 30,736,
+    64)) and at one window of its chunked run (256 items, 256 + 2·32 frames): the batch
+    offsets and tile counts of B·T rows. fp32 within 5e-5 (TF32 off), bf16 by the floor
+    rule; every launch counted."""
+    args = _case(B, 60 * frames + 16, seed=frames, device=cuda)
+    pack = lambda cd: fused_tail.pack_tail_weights(*args[1:], kernel_sizes=KS, dilations=DILS,
+                                                   compute_dtype=cd)
+    w32, w16 = pack(None), pack(torch.bfloat16)
+    before = fused_tail.fused_tail_stage.launches
+    got32, got16 = fused_tail.fused_tail_stage(args[0], w32), fused_tail.fused_tail_stage(args[0], w16)
+    want32 = fused_tail.fused_tail_stage_plain(args[0], w32)
+    want16 = fused_tail.fused_tail_stage_plain(args[0], w16)
+    torch.cuda.synchronize()
+    assert fused_tail.fused_tail_stage.launches == before + 2
+    assert got32.shape == got16.shape == want32.shape == (B, 4 * args[0].shape[1])
+    assert bool(torch.isfinite(got16).all())
+    assert (got32 - want32).abs().max().item() <= 5e-5
+    _check_bf16(got16, want16, got32, want32)
+
+
+def _bench_models(cuda, fuse_channels):
+    """bench.py's serving Cubegan (v1, 64 phones, 8 speakers, fused tail) from seeded
+    random weights, with bf16 and with fp32 storage, and 4 seeded items of 64
+    characters."""
+    import dataclasses
+
+    from ttscube_tpu_torch.convert import init_random
+    from ttscube_tpu_torch.models import cubegan as tcg
+    from ttscube_tpu_torch.models.hifigan import HifiganConfig
+    from ttscube_tpu_torch.models.languasito import LanguasitoConfig
+
+    cfg = tcg.CubeganConfig(
+        languasito=LanguasitoConfig(num_phones=64, num_speakers=8, max_pitch=400,
+                                    max_duration=100),
+        hifigan=HifiganConfig(fused_tail=True, storage_dtype="bfloat16",
+                              fuse_channels=fuse_channels))
+    m16 = init_random(tcg.Cubegan(cfg), 0).to(cuda).eval()
+    m32 = tcg.Cubegan(dataclasses.replace(cfg, hifigan=dataclasses.replace(
+        cfg.hifigan, storage_dtype="float32"))).to(cuda).eval()
+    m32.load_state_dict(m16.state_dict())
+    rng = np.random.default_rng(4)
+    X = {"x_char": torch.from_numpy(rng.integers(1, 64, (4, 64))).to(cuda),
+         "x_speaker": torch.from_numpy(rng.integers(1, 8, (4, 1))).to(cuda)}
+    return m16, m32, X
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse_channels", [(32,), (256, 128, 64, 32)], ids=["tail", "wide"])
+def test_chunked_serving_matches_whole_on_the_card(cuda, monkeypatch, fuse_channels):
+    """Cubegan.infer at 512 frames in windows of 256 (+ 2·32) frames against the whole
+    run, 4 items: fp32 within 5e-5 (TF32 off), bf16 storage by the floor rule; the fused
+    kernels launch once per window (B3 twice and B1-mid once more with every stage
+    fused); two chunked runs bit-equal under cuDNN's deterministic algorithms."""
+    from ttscube_tpu_torch.ops import fused_mrf
+
+    m16, m32, X = _bench_models(cuda, fuse_channels)
+    # cuDNN may run the transposed convs with atomic adds; relaunches are bit-equal only
+    # under deterministic algorithms
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    counters = (fused_tail.fused_tail_stage, fused_mrf.fused_mrf1, fused_tail.fused_tail_stage_mid)
+    whole32, whole16 = (m.infer(X, max_frames=512)[0] for m in (m32, m16))
+    before = [c.launches for c in counters]
+    chunk16 = m16.infer(X, max_frames=512, chunk_frames=256)[0]
+    rise = [c.launches - b for c, b in zip(counters, before)]
+    chunk32, again16 = m32.infer(X, max_frames=512, chunk_frames=256)[0], \
+        m16.infer(X, max_frames=512, chunk_frames=256)[0]
+    torch.cuda.synchronize()
+    assert rise == ([2, 0, 0] if fuse_channels == (32,) else [2, 4, 2])
+    assert chunk16.shape == whole16.shape == (4, 512 * 240)
+    assert bool(torch.isfinite(chunk16).all()) and torch.equal(chunk16, again16)
+    assert (chunk32 - whole32).abs().max().item() <= 5e-5
+    _check_bf16(chunk16, whole16, chunk32, whole32)
+
+
+@pytest.mark.gpu
+def test_bf16_train_step_on_the_card(cuda):
+    """One GAN step with bf16 convs in the generator and the discriminators (a small
+    config, no fused tail): finite losses within the floor scheme of the same step on
+    the CPU, every parameter and Adam moment still fp32."""
+    import dataclasses
+
+    from ttscube_tpu_torch.convert import init_random
+    from ttscube_tpu_torch.models import cubegan as tcg
+    from ttscube_tpu_torch.models.hifigan import HifiganConfig
+    from ttscube_tpu_torch.models.languasito import LanguasitoConfig
+
+    cfg16 = tcg.CubeganConfig(
+        languasito=LanguasitoConfig(num_phones=30, num_speakers=3, max_pitch=400,
+                                    max_duration=100),
+        hifigan=HifiganConfig(upsample_initial_channel=128, resblock_kernel_sizes=(3,),
+                              resblock_dilation_sizes=((1, 3),), compute_dtype="bfloat16"),
+        mpd_channels=(8, 16), msd_width=8, disc_compute_dtype="bfloat16")
+    cfg32 = dataclasses.replace(cfg16, hifigan=dataclasses.replace(
+        cfg16.hifigan, compute_dtype="float32"), disc_compute_dtype="float32")
+    weights = init_random(tcg.Cubegan(cfg16, train=True), 0).state_dict()
+    rng = np.random.default_rng(1)
+    B, N, F = 2, 16, 60
+    durs = rng.integers(2, 6, (B, N))
+    f2p = np.stack([np.concatenate([np.repeat(np.arange(N), d), np.full(F, N - 1)])[:F]
+                    for d in durs])
+    batch = {"x_char": rng.integers(1, 30, (B, N)), "x_speaker": rng.integers(1, 3, (B, 1)),
+             "y_frame2phone": f2p, "y_frame_mask": np.ones((B, F), bool),
+             "y_pitch": rng.uniform(80, 300, (B, F)).astype(np.float32), "y_dur": durs,
+             "y_audio": (0.2 * rng.standard_normal((B, F * 240))).astype(np.float32),
+             "n_frames": np.full(B, F)}
+    starts = torch.tensor([0, 5])
+    runs = {}
+    for label, cfg, where in (("card16", cfg16, "cuda"), ("card32", cfg32, "cuda"),
+                              ("cpu16", cfg16, "cpu")):
+        m = tcg.Cubegan(cfg, train=True)
+        m.load_state_dict(weights)
+        st = tcg.create_train_state(m.to(where))
+        with torch.backends.mkldnn.flags(enabled=False):
+            _, met = tcg.train_step(st, tcg.batch_to_torch(batch, where), starts=starts)
+        runs[label] = ({k: v.item() for k, v in met.items()}, st)
+    ref = runs["card32"][0]
+    rel = {k: torch.tensor([v[0][n] / abs(ref[n]) for n in sorted(ref)], dtype=torch.float64)
+           for k, v in runs.items()}
+    assert all(np.isfinite(list(runs["card16"][0].values())))
+    # the floor scheme with the CPU's bf16 step as the reference; the card's fp32 step
+    # is both the control and the other end of the floor
+    _check_bf16(rel["card16"], rel["cpu16"], rel["card32"], rel["card32"])
+    st = runs["card16"][1]
+    moments = [v for opt in st.optimizers.values() for s in opt.state.values()
+               for v in s.values() if isinstance(v, torch.Tensor) and v.dim() > 0]
+    assert all(p.dtype == torch.float32 for p in st.model.parameters())
+    assert moments and all(v.dtype == torch.float32 for v in moments)

@@ -10,6 +10,7 @@ torch twins of tests/test_cubegan.py's sequencing, partition and gate tests.
     bit-exact."""
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -243,15 +244,20 @@ def test_fused_train_has_no_batch_cap(tiny, monkeypatch):
 def test_fused_train_bf16_refuses(tiny):
     """With compute_dtype bfloat16 the JAX package warns and trains the plain bf16
     generator (tests/test_cubegan.py::test_fused_tail_train_bf16_falls_back_with_warning).
-    That bf16 training path is not ported yet, so the port's step raises instead of
-    training in another precision; so does a bf16 discriminator."""
+    The fused tail's backward (B2) has no bf16 form, and on the card the port may not
+    fall back to the plain path, so fused_tail_train with bf16 raises, naming the flag
+    to drop, in the step and when the training model is built. bf16 without the fused
+    tail, and a bf16 discriminator, train (tests/test_torch_bf16_train.py)."""
     batch, _, _, tm = tiny
     tb = tcg.batch_to_torch(batch, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="--fused-tail-train"):
         _gated(tm, compute_dtype="bfloat16").gan_forward(tb, 50, torch.tensor([0, 0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcg.Cubegan(tcg.CubeganConfig(languasito=tm.config.languasito,
-                                      disc_compute_dtype="bfloat16"), train=True)
+    cfg = tcg.CubeganConfig(languasito=tm.config.languasito, disc_compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="B2"):
+        tcg.Cubegan(dataclasses.replace(cfg, hifigan=tcg.HifiganConfig(
+            compute_dtype="bfloat16", fused_tail_train=True)), train=True)
+    m = tcg.Cubegan(cfg, train=True)
+    assert m.msd.s0.conv_0.compute_dtype == m.mpd.p2.conv_post.compute_dtype == torch.bfloat16
 
 
 def test_val_step_matches_jax(tiny):

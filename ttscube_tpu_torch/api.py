@@ -8,6 +8,12 @@ Steps, as in the JAX class: text → aligned phonemizer → collate → duration
 total frame count comes back to the host) → frame bucket (multiples of FRAME_BUCKET,
 at most MAX_FRAMES) → Cubegan.infer at that bucket → trim to total·hop → int16.
 
+`TTSCube.warmup()` runs the whole path once for each pair of text length and frame
+bucket it is given, so that a server's first requests do not pay for what a first
+call sets up on the card: the kernels' build (nvcc, at their first launch), the packed
+stage weights of the fused generator (`Generator.stage_weights`), cuDNN's handles and
+algorithm choices, and the caching allocator's blocks.
+
 `TTSCube(model_path, phonemizer_path)` reads the JAX package's files (`.yaml`,
 `.encodings`, flax msgpack `.model`) with the port's own readers
 (`utils/config_io.py`, `utils/serialization.py`), so it needs neither yaml nor msgpack;
@@ -32,6 +38,7 @@ from ttscube_tpu_torch.utils import config_io
 
 FRAME_BUCKET = 256
 MAX_FRAMES = 8192
+CHAR_BUCKET = 32
 # keys of the JAX package's HifiganConfig that a checkpoint's yaml may hold and that
 # change no value here: `fold_narrow` and `polyphase_channels` choose exact layout
 # transforms for the TPU, `fused_train_max_batch` a batch cap measured on the TPU
@@ -129,6 +136,24 @@ class TTSCube:
         audio, _ = self.model.infer(X, max_frames=bucket)
         audio = audio[0, : total * self.config.hop_size].float().cpu().numpy()
         return audio, total
+
+    @torch.inference_mode()
+    def warmup(self, frame_buckets=(FRAME_BUCKET, 2 * FRAME_BUCKET),
+               char_lens=(CHAR_BUCKET, 2 * CHAR_BUCKET), speaker: str = "none") -> None:
+        """Run the duration pass and synthesis once for each text length in
+        `char_lens` and each frame bucket in `frame_buckets`, through the real text →
+        phonemizer → collate path, as the JAX TTSCube.warmup does. A server calls it
+        once at start-up."""
+        for n in char_lens:
+            # about n characters of short words: the aligned phonemizer maps characters
+            # about one to one, so the phone axis lands near the n-phone collate bucket
+            text = " ".join("ab" for _ in range(max(1, n // 3)))[: max(n - 1, 2)]
+            X = self._prepare(text, speaker)
+            self._frames(X)
+            for b in frame_buckets:
+                self.model.infer(X, max_frames=b)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def __call__(self, text: str, speaker: str = "none") -> np.ndarray:
         audio, _ = self.synthesize(text, speaker)

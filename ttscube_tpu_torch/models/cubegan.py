@@ -1,5 +1,5 @@
 """Cubegan, counterpart of `ttscube_tpu/models/cubegan.py`: the config, inference
-(`Cubegan.infer`) and the GAN training step.
+(`Cubegan.infer`, whole or in windows of `chunk_frames`) and the GAN training step.
 
 Training, as in the JAX module: one forward of the text towers and the generator;
 the discriminators' step first, on the detached ŷ (it writes the MSD's spectral u);
@@ -17,8 +17,14 @@ are passed in or drawn from a `torch.Generator` (JAX and torch random bits diffe
 made for each train step from (seed, step) and for each validation from the seed
 alone, as JAX derives its keys: so validation never moves the training crops, and
 every validation sees the same windows.
-bf16 training (`hifigan.compute_dtype`, `disc_compute_dtype`), LM conditioning and
-chunked generation are not ported yet.
+
+bf16 training, as in the JAX module: `hifigan.compute_dtype="bfloat16"` runs the
+generator's convs (conv_post excepted) and `disc_compute_dtype="bfloat16"` the
+discriminators' convs with bf16 operands, each result rounded once to bf16 and then
+fp32 (`ops/conv.py`); weights, grads and the AdamW moments stay fp32. The fused tail's
+backward (B2) has no bf16 form in either package, so `fused_tail_train` with bf16
+raises where the JAX module warns and runs the plain path. LM conditioning is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -31,10 +37,11 @@ import torch
 import torch.nn as nn
 
 from ttscube_tpu_torch.dsp.mel import MelSpec, gan_mel_config
-from ttscube_tpu_torch.models.hifigan import (Generator, HifiganConfig,
+from ttscube_tpu_torch.models.hifigan import (_DTYPES, Generator, HifiganConfig,
                                               MultiPeriodDiscriminator,
                                               MultiScaleDiscriminator, discriminator_loss,
-                                              feature_loss, generator_loss)
+                                              feature_loss, generate_chunked,
+                                              generator_loss)
 from ttscube_tpu_torch.models.hifigan_fused import (generator_apply_fused,
                                                     generator_apply_fused_train)
 from ttscube_tpu_torch.models.languasito import (Languasito2, LanguasitoConfig,
@@ -55,12 +62,20 @@ class CubeganConfig:
     mel_weight: float = 45.0
     mpd_channels: tuple = (32, 128, 512, 1024)
     msd_width: int = 128
-    disc_compute_dtype: str = "float32"  # "bfloat16" is not ported yet
+    disc_compute_dtype: str = "float32"  # or "bfloat16": the discriminators' convs
+
+    @property
+    def torch_disc_compute_dtype(self):
+        return _DTYPES[self.disc_compute_dtype]
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue A: the bf16 "
-                               "training paths)")
+def check_fused_tail_train(hifigan: HifiganConfig) -> None:
+    """`fused_tail_train` runs B1 and B2, which take fp32 only: with another
+    `compute_dtype` it raises (the JAX module falls back to the plain path)."""
+    if hifigan.fused_tail_train and hifigan.compute_dtype != "float32":
+        raise ValueError(f"fused_tail_train with compute_dtype={hifigan.compute_dtype}: the "
+                         "fused tail's backward kernel (B2) is fp32 only; drop "
+                         "--fused-tail-train for a bf16 run")
 
 
 @contextlib.contextmanager
@@ -99,10 +114,10 @@ class Cubegan(nn.Module):
         self.gen = Generator(config.hifigan)
         self.train_mode = train
         if train:
-            if config.disc_compute_dtype != "float32":
-                raise _not_ported(f"disc_compute_dtype={config.disc_compute_dtype}")
-            self.mpd = MultiPeriodDiscriminator(channels=config.mpd_channels)
-            self.msd = MultiScaleDiscriminator(width=config.msd_width)
+            check_fused_tail_train(config.hifigan)
+            cd = config.torch_disc_compute_dtype
+            self.mpd = MultiPeriodDiscriminator(channels=config.mpd_channels, compute_dtype=cd)
+            self.msd = MultiScaleDiscriminator(width=config.msd_width, compute_dtype=cd)
         self.mel = MelSpec(gan_mel_config(config.sample_rate, hop_length=config.hop_size))
 
     @torch.inference_mode()
@@ -113,17 +128,22 @@ class Cubegan(nn.Module):
         return self.gen(cond)
 
     @torch.inference_mode()
-    def infer(self, X, max_frames: int):
-        """Free synthesis: (audio (B, max_frames·hop) fp32, aux dict)."""
+    def infer(self, X, max_frames: int, chunk_frames: int | None = None):
+        """Free synthesis: (audio (B, max_frames·hop) fp32, aux dict). With
+        `chunk_frames` the generator runs in windows of that many frames plus a halo
+        on each side, one after another (`generate_chunked`), which bounds its memory
+        for long utterances and large batches; None runs the whole utterance at once."""
         cond, aux = self.lang.infer(X, max_frames)
         h = self.config.hifigan
         if h.fused_tail:
-            audio = generator_apply_fused(
-                self.gen, cond, h, compute_dtype=h.torch_compute_dtype,
+            gen = lambda c: generator_apply_fused(
+                self.gen, c, h, compute_dtype=h.torch_compute_dtype,
                 storage_dtype=h.torch_storage_dtype, fuse_channels=h.fuse_channels)
         else:
-            audio = self.gen(cond)
-        return audio, aux
+            gen = self.gen
+        if chunk_frames is not None:
+            return generate_chunked(gen, cond, h.total_upsample, chunk=chunk_frames), aux
+        return gen(cond), aux
 
     # -- the training step's pieces -----------------------------------------------------
 
@@ -155,8 +175,7 @@ class Cubegan(nn.Module):
         if starts is None:
             starts = self.crop_starts(batch["n_frames"], window, generator)
         cond_w, y_w = self._crop(cond, batch["y_audio"], starts, window)
-        if h.compute_dtype != "float32":
-            raise _not_ported(f"training with hifigan compute_dtype={h.compute_dtype}")
+        check_fused_tail_train(h)
         if h.fused_tail_train:
             y_hat = generator_apply_fused_train(self.gen, cond_w, h)
         else:

@@ -1,9 +1,12 @@
-"""HiFi-GAN v1, counterpart of `ttscube_tpu/models/hifigan.py`: `HifiganConfig`,
-`ResBlock1`, `Generator`, the discriminators (`DiscriminatorP`, `DiscriminatorS`,
-`MultiPeriodDiscriminator`, `MultiScaleDiscriminator`) and the GAN losses.
-`Generator.forward` is the plain module path (the JAX `Generator.apply`); the serving
-path with the fused tail stage is `models/hifigan_fused.generator_apply_fused`, the
-training path `models/hifigan_fused.generator_apply_fused_train`.
+"""HiFi-GAN, counterpart of `ttscube_tpu/models/hifigan.py`: `HifiganConfig`,
+`ResBlock1` (v1) and `ResBlock2`, `Generator`, `generate_chunked`, the discriminators
+(`DiscriminatorP`, `DiscriminatorS`, `MultiPeriodDiscriminator`,
+`MultiScaleDiscriminator`) and the GAN losses. `Generator.forward` is the plain module
+path (the JAX `Generator.apply`); the serving path with the fused tail stage is
+`models/hifigan_fused.generator_apply_fused`, the training path
+`models/hifigan_fused.generator_apply_fused_train`. Every conv takes a
+`compute_dtype` (bf16 operands, the result rounded to bf16 and then fp32, the bias in
+fp32: `ops/conv.py`); weights and their norms stay fp32.
 """
 
 from __future__ import annotations
@@ -85,14 +88,37 @@ class ResBlock1(nn.Module):
         return x
 
 
+class ResBlock2(nn.Module):
+    """resblock '2' (HiFi-GAN v3): per dilation, leaky → conv(d) → + residual."""
+
+    def __init__(self, channels: int, kernel_size: int, dilations, compute_dtype=None):
+        super().__init__()
+        self.dilations = tuple(dilations)
+        for m, d in enumerate(self.dilations):
+            self.add_module(f"WNConv1d_{m}", WNConv1d(
+                channels, channels, kernel_size, dilation=d, compute_dtype=compute_dtype))
+
+    def convs(self):
+        return [getattr(self, f"WNConv1d_{m}") for m in range(len(self.dilations))]
+
+    def forward(self, x):
+        for conv in self.convs():
+            x = x + conv(F.leaky_relu(x, LRELU_SLOPE))
+        return x
+
+
+RESBLOCKS = {"1": ResBlock1, "2": ResBlock2}
+
+
 class Generator(nn.Module):
     """mel (B, frames, num_mels) → waveform (B, frames · prod(upsample_rates))."""
 
     def __init__(self, config: HifiganConfig = HifiganConfig()):
         super().__init__()
         c = self.config = config
-        if c.resblock != "1":
-            raise NotImplementedError("only resblock '1' (HiFi-GAN v1) is ported")
+        if c.resblock not in RESBLOCKS:
+            raise ValueError(f"resblock {c.resblock!r}: want one of {sorted(RESBLOCKS)}")
+        res_cls = RESBLOCKS[c.resblock]
         cd = c.torch_compute_dtype
         self.conv_pre = WNConv1d(c.num_mels, c.upsample_initial_channel, 7, padding=3,
                                  compute_dtype=cd)
@@ -103,7 +129,7 @@ class Generator(nn.Module):
             ch //= 2
             for j, (rk, rd) in enumerate(zip(c.resblock_kernel_sizes,
                                              c.resblock_dilation_sizes)):
-                self.add_module(f"res_{i}_{j}", ResBlock1(ch, rk, rd, compute_dtype=cd))
+                self.add_module(f"res_{i}_{j}", res_cls(ch, rk, rd, compute_dtype=cd))
         self.conv_post = WNConv1d(ch, 1, 7, padding=3)
         self._stage_cache = {}
 
@@ -166,20 +192,48 @@ class Generator(nn.Module):
         return audio[:, : mel.shape[1] * c.total_upsample]
 
 
+def generate_chunked(apply_fn, cond, upsample: int, chunk: int = 256, halo: int = 32):
+    """Generator inference in windows of bounded size: `apply_fn` (cond (B, F, C) →
+    audio (B, F·upsample)) runs over windows of chunk + 2·halo frames, and each keeps
+    the audio of its `chunk` central frames. The JAX function's window starts and kept
+    spans: every window is a slice of the real signal, never zero-padded, and a kept
+    frame is either at least `halo` frames from its window's edges or at a window edge
+    that is the utterance's own, where `apply_fn`'s zero padding is the full run's.
+    `halo` must cover the generator's receptive field in frames (v1: about 25). The
+    windows run one after another, so peak memory is one window's. An input of at most
+    one window runs whole."""
+    B, T, _ = cond.shape
+    W = chunk + 2 * halo
+    if T <= W:
+        return apply_fn(cond)
+    out = None
+    for k0 in range(0, T, chunk):
+        k1 = min(k0 + chunk, T)               # the kept frames tile [0, T)
+        a = min(max(k0 - halo, 0), T - W)     # the window lies in [0, T)
+        audio = apply_fn(cond[:, a:a + W])
+        if out is None:
+            out = audio.new_zeros(B, T * upsample)
+        out[:, k0 * upsample:k1 * upsample] = audio[:, (k0 - a) * upsample:(k1 - a) * upsample]
+    return out
+
+
 class DiscriminatorP(nn.Module):
     """Period discriminator: reflect-pad (B, T) to a multiple of the period, fold it to
     (B, 1, T/p, p) and run strided 2-D convs (NCHW; the JAX module runs NHWC). Returns
     the scores (B, ·) and the feature maps (NCHW)."""
 
-    def __init__(self, period: int, channels: tuple = (32, 128, 512, 1024)):
+    def __init__(self, period: int, channels: tuple = (32, 128, 512, 1024),
+                 compute_dtype=None):
         super().__init__()
         self.period = period
+        cd = dict(compute_dtype=compute_dtype)
         in_ch = 1
         for i, ch in enumerate(channels):
-            self.add_module(f"conv_{i}", WNConv2d(in_ch, ch, (5, 1), (3, 1), (2, 0)))
+            self.add_module(f"conv_{i}", WNConv2d(in_ch, ch, (5, 1), (3, 1), (2, 0), **cd))
             in_ch = ch
-        self.add_module(f"conv_{len(channels)}", WNConv2d(in_ch, in_ch, (5, 1), (1, 1), (2, 0)))
-        self.conv_post = WNConv2d(in_ch, 1, (3, 1), (1, 1), (1, 0))
+        self.add_module(f"conv_{len(channels)}",
+                        WNConv2d(in_ch, in_ch, (5, 1), (1, 1), (2, 0), **cd))
+        self.conv_post = WNConv2d(in_ch, 1, (3, 1), (1, 1), (1, 0), **cd)
         self.n_convs = len(channels) + 1
 
     def forward(self, x):
@@ -202,7 +256,8 @@ class DiscriminatorS(nn.Module):
     for scale 0, weight-normalized otherwise. Groups are clamped to divide the channels,
     as in the JAX module, so that narrow test widths work."""
 
-    def __init__(self, use_spectral_norm: bool = False, width: int = 128):
+    def __init__(self, use_spectral_norm: bool = False, width: int = 128,
+                 compute_dtype=None):
         super().__init__()
         w = width
         layers = [
@@ -219,9 +274,9 @@ class DiscriminatorS(nn.Module):
         in_ch = 1
         for i, kw in enumerate(layers):
             kw["groups"] = math.gcd(kw["groups"], math.gcd(in_ch, kw["features"]))
-            self.add_module(f"conv_{i}", conv(in_ch, **kw))
+            self.add_module(f"conv_{i}", conv(in_ch, **kw, compute_dtype=compute_dtype))
             in_ch = kw["features"]
-        self.conv_post = conv(in_ch, 1, kernel_size=3, padding=1)
+        self.conv_post = conv(in_ch, 1, kernel_size=3, padding=1, compute_dtype=compute_dtype)
         self.n_convs = len(layers)
 
     def forward(self, x, update_stats: bool = False):
@@ -238,11 +293,11 @@ class DiscriminatorS(nn.Module):
 
 class MultiPeriodDiscriminator(nn.Module):
     def __init__(self, periods: tuple = (2, 3, 5, 7, 11),
-                 channels: tuple = (32, 128, 512, 1024)):
+                 channels: tuple = (32, 128, 512, 1024), compute_dtype=None):
         super().__init__()
         self.periods = tuple(periods)
         for p in self.periods:
-            self.add_module(f"p{p}", DiscriminatorP(p, channels))
+            self.add_module(f"p{p}", DiscriminatorP(p, channels, compute_dtype))
 
     def forward(self, y, y_hat):
         rs, gs, fmap_rs, fmap_gs = [], [], [], []
@@ -260,10 +315,11 @@ def avgpool42(x):
 
 
 class MultiScaleDiscriminator(nn.Module):
-    def __init__(self, width: int = 128):
+    def __init__(self, width: int = 128, compute_dtype=None):
         super().__init__()
         for i in range(3):
-            self.add_module(f"s{i}", DiscriminatorS(use_spectral_norm=(i == 0), width=width))
+            self.add_module(f"s{i}", DiscriminatorS(use_spectral_norm=(i == 0), width=width,
+                                                    compute_dtype=compute_dtype))
 
     def forward(self, y, y_hat, update_stats: bool = False):
         """Scale 0 scores y with `update_stats` (the spectral u may be written) and

@@ -16,7 +16,10 @@ that the JAX function fuses and no kernel of the port takes raises; it never run
 stock convs. Between convs the activations are kept in `storage_dtype` (bf16 when
 serving); inside a fused stage they stay fp32, as in the TPU kernels. The non-fused
 conv_post and tanh run in fp32, as in the JAX function. Its polyphase option
-(`polyphase_channels`) is an exact layout transform and is not ported.
+(`polyphase_channels`) is an exact layout transform and is not ported. Both functions
+take ResBlock1 generators only and raise ValueError for another resblock kind (the
+JAX functions fail with a KeyError there): a ResBlock2 generator is served through
+`Generator` with `fused_tail=False`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -69,6 +72,12 @@ def _upsample(x, up, stride, kernel_size, compute_dtype=None, storage_dtype=None
     return _st(y, storage_dtype)
 
 
+def _require_resblock1(cfg: HifiganConfig, fn: str) -> None:
+    if cfg.resblock != "1":
+        raise ValueError(f"{fn}: resblock {cfg.resblock!r} is not fused; serve a resblock "
+                         f"{cfg.resblock!r} generator through Generator (fused_tail=False)")
+
+
 def _plain_resblock1(x, block, compute_dtype=None, storage_dtype=None):
     convs = block.convs()
     for m, d in enumerate(block.dilations):
@@ -87,6 +96,7 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
 
     Unlike the JAX function, every batch size takes the fused stages: its cut-off at
     B > 64 (`fuse_max_batch`) was measured on the TPU."""
+    _require_resblock1(cfg, "generator_apply_fused")
     if storage_dtype is not None and compute_dtype is None:
         compute_dtype = storage_dtype
     x = _st(_conv(mel, gen.conv_pre, compute_dtype, padding=3), storage_dtype)
@@ -95,7 +105,7 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
     n_blocks = len(cfg.resblock_kernel_sizes)
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
         ch //= 2
-        if cfg.resblock == "1" and k == u and (u * ch) % 128 == 0 and ch in fuse_channels:
+        if k == u and (u * ch) % 128 == 0 and ch in fuse_channels:
             # the whole stage (upsample + MRF [+ conv_post + tanh]) as one kernel
             w = gen.stage_weights(i, compute_dtype)
             if i == n_stages - 1:
@@ -106,9 +116,8 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
         up = getattr(gen, f"up_{i}")
         x = _upsample(x, up, u, k, compute_dtype, storage_dtype)
         fold = 128 // ch if (ch < 128 and 128 % ch == 0) else 1
-        if (cfg.resblock == "1" and ch in fuse_channels
-                and ((fold >= 2 and ch * fold == 128 and x.shape[1] % fold == 0)
-                     or ch % 128 == 0)):
+        if ch in fuse_channels and ((fold >= 2 and ch * fold == 128 and x.shape[1] % fold == 0)
+                                    or ch % 128 == 0):
             # the whole MRF (every chain and their mean) as one kernel
             x = _st(fused_mrf1(x.float().contiguous(), gen.stage_weights(i, compute_dtype)),
                     storage_dtype)
@@ -135,6 +144,7 @@ def generator_apply_fused_train(gen: Generator, mel: torch.Tensor,
     weight-normed tensors with their graph, so autograd pulls the grads on back to
     each v and g (not `Generator.tail_weights`, which packs once, detached, for
     serving)."""
+    _require_resblock1(cfg, "generator_apply_fused_train")
     x = _conv(mel, gen.conv_pre, None, padding=3)
     ch = cfg.upsample_initial_channel
     n_stages = len(cfg.upsample_rates)
@@ -143,7 +153,7 @@ def generator_apply_fused_train(gen: Generator, mel: torch.Tensor,
         ch //= 2
         up = getattr(gen, f"up_{i}")
         blocks = [getattr(gen, f"res_{i}_{j}") for j in range(n_blocks)]
-        if i == n_stages - 1 and cfg.resblock == "1" and k == u == 4 and ch == 32:
+        if i == n_stages - 1 and k == u == 4 and ch == 32:
             convs = [cv for block in blocks for cv in block.convs()]
             audio = fused_tail_stage_train(
                 x.contiguous(), up.weight(), up.bias, [cv.weight() for cv in convs],

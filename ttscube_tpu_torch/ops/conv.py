@@ -49,6 +49,42 @@ def _cast(x, w, compute_dtype):
     return x.to(compute_dtype), w.to(compute_dtype)
 
 
+class _RoundedConv(torch.autograd.Function):
+    """`conv(x, w, **kw)` of bf16 operands on the CPU as XLA computes it: each product
+    summed in fp32 and the result rounded once to bf16. The backward takes the bf16
+    cotangent, computes both grads in fp32 from the same operands and rounds each once
+    to bf16, as JAX's transposed convs of an `astype` VJP do. (PyTorch's CPU bf16 conv
+    without oneDNN rounds partial sums: up to 4 bf16 ulps off.)"""
+
+    @staticmethod
+    def forward(ctx, x, w, conv, kw):
+        ctx.conv, ctx.kw = conv, kw
+        ctx.save_for_backward(x, w)
+        return conv(x.float(), w.float(), **kw).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+        with torch.enable_grad():
+            out = ctx.conv(xf, wf, **ctx.kw)
+        dx, dw = torch.autograd.grad(out, (xf, wf), dy.float())
+        return dx.to(x.dtype), dw.to(w.dtype), None, None
+
+
+def _mp_conv(conv, x, w, compute_dtype, **kw):
+    """One conv in the JAX package's training precision (`_mp_cast`): operands cast to
+    `compute_dtype`, the conv's result in that dtype and then fp32 (the caller adds the
+    bias in fp32). Card tensors run PyTorch's conv in bf16 (cuDNN sums in fp32 and
+    rounds once); CPU tensors `_RoundedConv`, which rounds at the same places."""
+    xc, wc = _cast(x, w, compute_dtype)
+    if compute_dtype is None:
+        return conv(xc, wc, **kw)
+    if xc.device.type == "cpu":
+        return _RoundedConv.apply(xc, wc, conv, kw).float()
+    return conv(xc, wc, **kw).float()
+
+
 class Conv1d(nn.Module):
     """Plain Conv1d with xavier-uniform init scaled by a gain (JAX `Conv1d`)."""
 
@@ -102,9 +138,8 @@ class WNConv1d(nn.Module):
         return wn_weight(self.v, self.g, 0)
 
     def forward(self, x):
-        xc, w = _cast(x, self.weight(), self.compute_dtype)
-        y = conv1d(xc, w, None, self.stride, self.padding, self.dilation,
-                   self.groups).float()
+        y = _mp_conv(conv1d, x, self.weight(), self.compute_dtype, stride=self.stride,
+                     padding=self.padding, dilation=self.dilation, groups=self.groups)
         return y + self.bias if self.bias is not None else y
 
 
@@ -130,8 +165,8 @@ class WNConvTranspose1d(nn.Module):
         return wn_weight(self.v, self.g, 0)
 
     def forward(self, x):
-        xc, w = _cast(x, self.weight(), self.compute_dtype)
-        y = conv_transpose1d(xc, w, None, self.stride, self.padding).float()
+        y = _mp_conv(conv_transpose1d, x, self.weight(), self.compute_dtype,
+                     stride=self.stride, padding=self.padding)
         return y + self.bias if self.bias is not None else y
 
 
@@ -139,12 +174,15 @@ class WNConv2d(nn.Module):
     """Weight-normalized Conv2d (per-output-channel norm), counterpart of the JAX
     `WNConv2d` (the period discriminators'). The JAX module runs NHWC with an HWIO
     kernel (kh, kw, in, out); the port runs NCHW with PyTorch's (out, in, kh, kw), and
-    `ttscube_tpu_torch.convert` transposes between them."""
+    `ttscube_tpu_torch.convert` transposes between them. `compute_dtype` as in
+    `WNConv1d`; the weight norm stays fp32."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: tuple,
-                 strides: tuple = (1, 1), padding: tuple = (0, 0), use_bias: bool = True):
+                 strides: tuple = (1, 1), padding: tuple = (0, 0), use_bias: bool = True,
+                 compute_dtype=None):
         super().__init__()
         self.strides, self.padding = tuple(strides), tuple(padding)
+        self.compute_dtype = compute_dtype
         self.v = nn.Parameter(torch.zeros(features, in_channels, *kernel_size))
         self.g = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
@@ -159,7 +197,11 @@ class WNConv2d(nn.Module):
 
     def forward(self, x):
         """x (B, C_in, H, W) → (B, features, H', W')."""
-        return F.conv2d(x, self.weight(), self.bias, self.strides, self.padding)
+        if self.compute_dtype is None:
+            return F.conv2d(x, self.weight(), self.bias, self.strides, self.padding)
+        y = _mp_conv(F.conv2d, x, self.weight(), self.compute_dtype, stride=self.strides,
+                     padding=self.padding)
+        return y + self.bias[:, None, None] if self.bias is not None else y
 
 
 class SNConv1d(nn.Module):
@@ -168,13 +210,15 @@ class SNConv1d(nn.Module):
     only (u' and v' held constant); the new u' is stored only under
     `update_stats=True`. Not `torch.nn.utils.spectral_norm`, which iterates in training
     mode only and then always stores. `u` is a buffer (the JAX "spectral" collection);
-    `ttscube_tpu_torch.convert` carries it across, never re-seeded."""
+    `ttscube_tpu_torch.convert` carries it across, never re-seeded. `compute_dtype` as
+    in `WNConv1d`: the power iteration and σ stay fp32, only w / σ is cast."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 1,
                  stride: int = 1, padding: int | None = None, groups: int = 1,
-                 use_bias: bool = True):
+                 use_bias: bool = True, compute_dtype=None):
         super().__init__()
         self.stride, self.groups = stride, groups
+        self.compute_dtype = compute_dtype
         self.padding = padding if padding is not None else (kernel_size - 1) // 2
         self.kernel = nn.Parameter(torch.zeros(features, in_channels // groups, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
@@ -202,5 +246,9 @@ class SNConv1d(nn.Module):
 
     def forward(self, x, update_stats: bool = False):
         """x (B, T, C_in) → (B, T', features)."""
-        return conv1d(x, self.weight(update_stats), self.bias, self.stride, self.padding,
-                      1, self.groups)
+        w = self.weight(update_stats)
+        if self.compute_dtype is None:
+            return conv1d(x, w, self.bias, self.stride, self.padding, 1, self.groups)
+        y = _mp_conv(conv1d, x, w, self.compute_dtype, stride=self.stride,
+                     padding=self.padding, groups=self.groups)
+        return y + self.bias if self.bias is not None else y

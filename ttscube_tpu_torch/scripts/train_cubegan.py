@@ -9,8 +9,11 @@ saves `{base}.best`, `{base}.last` and `{base}.opt.last` by the JAX trainer's ru
 synthesizes the devset to `generated_files/free/` every `--epoch-generation` epochs
 (0: never), and with `--resume` restores the whole state from `{base}.opt.last`. The
 files are the JAX package's: either package resumes the other's run. Training runs on
-the card unless `--device cpu`. Not ported yet: bf16 compute (ROADMAP A8b), LM
-conditioning (`--lm`, A11.2) and a device mesh (`--mesh-data`/`--mesh-model`, A9).
+the card unless `--device cpu`. `--compute-dtype bfloat16` runs the generator's and
+the discriminators' convs with bf16 operands (weights, grads and the optimizer state
+stay fp32); `--fused-tail-train` is fp32 only (its backward kernel, B2, has no bf16
+form), so the two together are refused. Not ported yet: LM conditioning (`--lm`,
+A11.2) and a device mesh (`--mesh-data`/`--mesh-model`, A9).
 """
 
 from __future__ import annotations
@@ -45,7 +48,9 @@ def parser() -> ArgumentParser:
                    help="the generator's last stage through the fused kernels: forward "
                         "B1, backward B2 (fp32)")
     p.add_argument("--compute-dtype", dest="compute_dtype", default="float32",
-                   choices=["float32", "bfloat16"])
+                   choices=["float32", "bfloat16"],
+                   help="the convs' operand type in the generator and the discriminators "
+                        "(weights and optimizer state stay fp32)")
     p.add_argument("--no-defer-best-saves", dest="defer_best_saves", action="store_false",
                    default=True, help="write .best on every improving epoch (default: "
                    "keep it on the device until the next --opt-save-every save)")
@@ -58,10 +63,17 @@ def parser() -> ArgumentParser:
     return p
 
 
+def parse_args(argv=None):
+    p = parser()
+    args = p.parse_args(argv)
+    if args.fused_tail_train and args.compute_dtype != "float32":
+        p.error(f"--fused-tail-train with --compute-dtype {args.compute_dtype}: the fused "
+                "tail's backward kernel (B2) is fp32 only; drop --fused-tail-train for a "
+                "bf16 run")
+    return args
+
+
 def _refuse_unported(args) -> None:
-    if args.compute_dtype != "float32":
-        raise NotImplementedError(f"--compute-dtype {args.compute_dtype} is not ported yet "
-                                  "(ROADMAP.md A8b: bf16 training)")
     if args.lm:
         raise NotImplementedError(f"--lm {args.lm} is not ported yet (ROADMAP.md A11.2: "
                                   "HF and fastText conditioning)")
@@ -72,7 +84,7 @@ def _refuse_unported(args) -> None:
 
 def main(argv=None):
     """Train as the flags say; returns the final TrainState."""
-    args = parser().parse_args(argv)
+    args = parse_args(argv)
     _refuse_unported(args)
 
     from ttscube_tpu_torch import resolve_device
@@ -82,7 +94,6 @@ def main(argv=None):
     from ttscube_tpu_torch.data.encodings import CubeganEncodings
     from ttscube_tpu_torch.models.cubegan import (Cubegan, CubeganConfig,
                                                   create_train_state, train_step, val_step)
-    from ttscube_tpu_torch.models.hifigan import HifiganConfig
     from ttscube_tpu_torch.models.languasito import LanguasitoConfig
     from ttscube_tpu_torch.train.loop import train
     from ttscube_tpu_torch.train.runtime import cubegan_synthesize_dataset
@@ -117,8 +128,10 @@ def main(argv=None):
             num_phones=len(encodings.phon2int), num_speakers=len(encodings.speaker2int),
             max_pitch=encodings.max_pitch, max_duration=encodings.max_duration),
         lr=args.lr, sample_rate=args.sample_rate, hop_size=args.hop_size)
-    if args.fused_tail_train:
-        cfg = dataclasses.replace(cfg, hifigan=HifiganConfig(fused_tail_train=True))
+    cfg = dataclasses.replace(
+        cfg, hifigan=dataclasses.replace(cfg.hifigan, fused_tail_train=args.fused_tail_train,
+                                         compute_dtype=args.compute_dtype),
+        disc_compute_dtype=args.compute_dtype)
     model = init_random(Cubegan(cfg, train=True), seed=0).to(device)
     state = create_train_state(model, seed=0)
     collate = CubeganCollate(encodings, hop=args.hop_size)
