@@ -27,7 +27,9 @@ Phases, each printing one line with its seconds as it ends:
               CPU; two launches bit-equal
   warmup      TTSCube at the full Cubegan v1 width from seeded random weights runs
               TTSCube.warmup (B1 once per frame bucket and text length); the first
-              request after it, beside the same request in the steady state
+              request after it, beside the same request in the steady state, at most
+              FIRST_REQUEST_BOUND times its median; a fresh TTSCube's first request after
+              its warmup and a steady one under the profiler, host ops by self time
   serve       that TTSCube answers three requests; the B1 launch counter must rise by one
               per request; one more request in fp32 (TF32 off) must match the same model
               run on the CPU
@@ -62,6 +64,20 @@ Phases, each printing one line with its seconds as it ends:
               the card as the same weights do through TTSCube.from_state_dicts; then
               the CLI with --compute-dtype bfloat16: two steps and a save, --resume
               bit-equal, and the next step from both bit-equal
+  mesh        the mesh (ttscube_tpu_torch/parallel/mesh.py, FSDP2 over NCCL) on every
+              card: entry.dryrun_multichip (step, step, save, restore, step, synthesis);
+              the trainer CLI at v1 width with --mesh-data 1 --mesh-model 1
+              --fused-tail-train (B1 and B2 once per step under the mesh) against the
+              same run without the mesh, both with TF32 off (each step's losses 1e-4
+              relative and the parameters after it in units of lr), each step's host
+              ms beside the other's; synthesis of 4 items over the mesh
+              against Cubegan.infer (fp32, TF32 off, 5e-5)
+  import_export  raw audio to a served voice with the port alone: make_demo_corpus (2
+              speakers x IMPORT_SENTENCES), import_blizzard_2023 on the card and on the
+              CPU (every .mgc within 1e-4, every other file equal), 2 train steps at v1
+              width on the imported folder, export_model, and one request through
+              TTSCube from the exported volumes on the card (B1 once); the import's
+              seconds per audio second by part, the export's seconds, the request's ms
   generator_resblock2  a plain Generator at v1's widths with ResBlock2 (HiFi-GAN v3's
               kernels and dilations), fp32 on the card against the CPU
   times       each kernel's median time beside its plain version's and its bound (and
@@ -138,6 +154,12 @@ TRAINER_STEPS = 4
 # frames (plus a halo of 32 on each side); the chunked-vs-whole checks at CHECK_BATCH
 BATCH, BATCH_CHARS, BATCH_FRAMES, BATCH_CALLS = 128, 64, 512, 4
 CHUNK_BATCH, CHUNK_FRAMES, CHECK_BATCH = 256, 256, 4
+# import_export: the demo corpus of 2 speakers, cut from make_demo_corpus's default 300
+# sentences each to fit the run's time limit
+IMPORT_SENTENCES = 32
+# C7: the first request after TTSCube.warmup, at most this many times the same request's
+# steady-state median
+FIRST_REQUEST_BOUND = 1.5
 # generator_resblock2: the public HiFi-GAN v3 config's residual blocks at v1's widths
 V3_BLOCKS = dict(resblock="2", resblock_kernel_sizes=(3, 5, 7),
                  resblock_dilation_sizes=((1, 2), (2, 6), (3, 12)))
@@ -566,6 +588,25 @@ def print_profile(what: str, wall_ms, busy_ms, by_name, n_events) -> None:
         print(f"    {ms_:9.3f} ms {n:6d}x {name[:90]}", flush=True)
 
 
+def host_profile(fn, top: int = 8):
+    """Run `fn` once under torch.profiler with host events: (wall ms with the profiler
+    on, device-busy ms, the `top` host ops by self CPU ms as (name, ms, calls))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in ("Buffer Flush", "Activity Buffer Request")) / 1e3
+    return wall_ms, busy, [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in rows[:top]]
+
+
 @contextlib.contextmanager
 def deterministic():
     """PyTorch's deterministic algorithms (cuDNN's among them), for a comparison that
@@ -724,9 +765,272 @@ def chunk_check(what: str, model16, model32, X, chunk: int) -> dict:
     return launches
 
 
+def train_cli(argv: list):
+    """The trainer CLI's run of `argv` on the card, as `main` runs it without a mesh:
+    its final TrainState (`train_on`; `main` returns only the step count)."""
+    import torch
+
+    from ttscube_tpu_torch.scripts import train_cubegan
+
+    return train_cubegan.train_on(train_cubegan.parse_args(argv), torch.device("cuda"))
+
+
 def relative_losses(met: dict, ref: dict) -> list:
     """A step's losses relative to the reference step's, in a fixed order."""
     return [met[k] / abs(ref[k]) for k in sorted(ref)]
+
+
+def _flat_tree(tree: dict, prefix: str = "") -> dict:
+    """A parameter file's tree as {dotted name: tensor}."""
+    import torch
+
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = torch.as_tensor(v)
+    return out
+
+
+def mesh_phase(enc, work: Path) -> dict:
+    """The mesh (parallel/mesh.py) on this machine's cards: `entry.dryrun_multichip`
+    over every card (NCCL); the trainer CLI at v1 width with --mesh-data 1 --mesh-model 1
+    --fused-tail-train (B1 and B2 under FSDP2) against the same run without the mesh,
+    both in full fp32: each step's losses TOL_LOSS relative and the parameters after it
+    in units of lr; and mesh
+    synthesis of 4 items against Cubegan.infer (fp32, TF32 off, TOL_FP32). Returns the
+    mesh run's launches and the numbers to print."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ttscube_tpu_torch import entry
+    from ttscube_tpu_torch.api import config_from_yaml
+    from ttscube_tpu_torch.convert import init_random, read_msgpack
+    from ttscube_tpu_torch.models import cubegan as tcg
+    from ttscube_tpu_torch.parallel import mesh as pm
+    from ttscube_tpu_torch.scripts import train_cubegan
+
+    n_cards = torch.cuda.device_count()
+    t1 = time.perf_counter()
+    dry = entry.dryrun_multichip(n_cards)
+    dry_s = time.perf_counter() - t1
+    print(f"  dryrun_multichip({n_cards}) on NCCL: {dry_s:.1f} s; losses by step: " + "; ".join(
+        f"{k} loss_g={v['loss_g']:.4f} loss_d={v['loss_d']:.4f}" for k, v in dry.items()),
+          flush=True)
+
+    corpus = work / "corpus"
+    write_corpus(corpus, list(enc.phon2int), TRAINER_UTTS, seed=SEED + 5)
+    runs = {}
+    real_step = tcg.train_step
+    for name, flags in (("plain", []), ("mesh", ["--mesh-data", "1", "--mesh-model", "1"])):
+        base = str(work / name / "cubegan")
+        argv = ["--train-folder", str(corpus), "--dev-folder", str(corpus), "--output-base",
+                base, "--batch-size", str(TRAINER_BATCH), "--max-steps", "2", "--max-epochs",
+                "1", "--epoch-generation", "0", "--fused-tail-train", *flags]
+        ms, metrics, rises, first = [], [], [], {}
+
+        def recorded(st, batch, starts=None):
+            before = read_counts()
+            t2 = time.perf_counter()
+            out = real_step(st, batch, starts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t2) * 1e3)
+            after = read_counts()
+            rises.append(tuple(after[n] - before[n] for n in ("fused_tail_stage",
+                                                             "fused_tail_stage_grad")))
+            metrics.append({k: float(v) for k, v in out[1].items()})
+            if not first:  # the parameters after the first step, whole
+                first.update({n: (p.full_tensor() if isinstance(p, DTensor) else p)
+                              .detach().cpu() for n, p in st.model.named_parameters()})
+            return out
+
+        tcg.train_step = recorded
+        try:
+            with deterministic(), no_tf32():
+                torch.cuda.synchronize()
+                zero_counts()
+                t1 = time.perf_counter()
+                step = train_cubegan.main(argv)
+                torch.cuda.synchronize()
+                cli_s = time.perf_counter() - t1
+                counts = read_counts()
+        finally:
+            tcg.train_step = real_step
+        check(step == 2 and rises == [(1, 1)] * 2,
+              f"mesh: the {name} CLI ran {step} steps, B1/B2 launches per step {rises}")
+        runs[name] = dict(ms=ms, metrics=metrics, counts=counts, cli_s=cli_s, first=first,
+                          params=_flat_tree(read_msgpack(base + ".last")))
+    # the resumed-vs-live limits: each step's losses TOL_LOSS relative; the parameters
+    # after the first step within 2 lr plus rounding (Adam's first step moves each by
+    # about lr·sign(g), and FSDP's gathered weights sum the grads in another order, so a
+    # grad near zero may step the other way), and after each step at most 0.1 % of them
+    # beyond 0.01 lr. Both runs in full fp32: with TF32 the two orders differ by more
+    loss_diffs = [max(abs(m[k] - v) / abs(v) for k, v in a.items())
+                  for a, m in zip(runs["plain"]["metrics"], runs["mesh"]["metrics"])]
+    lr = 2e-4  # the CLI's default --lr
+    worst_p, over, far, total = param_distance(runs["mesh"]["first"],
+                                               runs["plain"]["first"], lr)
+    worst_2, _, far_2, _ = param_distance(runs["mesh"]["params"], runs["plain"]["params"], lr)
+    print(f"  trainer CLI --mesh-data 1 --mesh-model 1 --fused-tail-train (FSDP2 over NCCL, "
+          f"one rank) vs no mesh, B={TRAINER_BATCH}, TF32 off: max_rel_loss_diff step 1 "
+          f"{loss_diffs[0]:.3e}, step 2 {loss_diffs[1]:.3e} tol={TOL_LOSS:.0e}; params after "
+          f"step 1 max {worst_p / lr:.4f} lr, {over} beyond 2 lr + rounding, {far} of "
+          f"{total} beyond 0.01 lr; after step 2 max {worst_2 / lr:.4f} lr, {far_2} beyond "
+          f"0.01 lr; step host ms mesh {', '.join(f'{v:.1f}' for v in runs['mesh']['ms'])} "
+          f"vs no mesh {', '.join(f'{v:.1f}' for v in runs['plain']['ms'])}; CLI s mesh "
+          f"{runs['mesh']['cli_s']:.1f} vs {runs['plain']['cli_s']:.1f}; launches "
+          f"{runs['mesh']['counts']}", flush=True)
+    check(max(loss_diffs) <= TOL_LOSS and over == 0 and max(far, far_2) <= 1e-3 * total,
+          "mesh: the mesh CLI's steps differ from the CLI's without the mesh")
+    check(all(math.isfinite(v) for m in runs["mesh"]["metrics"] for v in m.values()),
+          "mesh: a loss of the mesh CLI is not finite")
+    check(runs["mesh"]["counts"]["fused_tail_stage_grad"] == 2,
+          f"mesh: B2 launches {runs['mesh']['counts']}")
+
+    # synthesis over a (1, 1) mesh (FSDP2, NCCL) against Cubegan.infer, fp32
+    cfg = config_from_yaml({"hifigan": {"storage_dtype": "float32"}}, enc)
+    state = init_random(tcg.Cubegan(cfg), SEED + 9).state_dict()
+    rng = np.random.default_rng(SEED + 9)  # characters and speakers of these encodings
+    X = {"x_char": torch.from_numpy(rng.integers(1, len(enc.phon2int),
+                                                 (CHECK_BATCH, BATCH_CHARS))).to("cuda"),
+         "x_speaker": torch.from_numpy(rng.integers(1, len(enc.speaker2int),
+                                                    (CHECK_BATCH, 1))).to("cuda")}
+
+    def synth(rank, world, device):
+        model = tcg.Cubegan(cfg).to(device).eval()
+        model.load_state_dict(state)
+        mesh = pm.make_mesh(world, 1, device=device)
+        run = pm.make_parallel_synthesis(model, mesh, BATCH_FRAMES // 2)
+        with no_tf32():
+            zero_counts()
+            got = run(X)
+            torch.cuda.synchronize()
+            return got, read_counts()
+
+    single = tcg.Cubegan(cfg).to("cuda").eval()
+    single.load_state_dict(state)
+    with no_tf32():
+        want, _ = single.infer(X, max_frames=BATCH_FRAMES // 2)
+    got, synth_counts = pm.run_ranks(synth, 1, "cuda")
+    err = float((got - want).abs().max())
+    print(f"  mesh synthesis of {CHECK_BATCH} items at {BATCH_FRAMES // 2} frames (fp32, TF32 "
+          f"off): max_abs_err vs Cubegan.infer={err:.3e} tol={TOL_FP32:.0e}; B1 launches "
+          f"{synth_counts['fused_tail_stage']}", flush=True)
+    check(tuple(got.shape) == (CHECK_BATCH, BATCH_FRAMES // 2 * HOP) and err <= TOL_FP32
+          and bool(torch.isfinite(got).all()) and synth_counts["fused_tail_stage"] == 1,
+          "mesh: synthesis over the mesh differs from Cubegan.infer")
+    del single, got, want
+    counts = {n: runs["mesh"]["counts"][n] + synth_counts[n] for n in synth_counts}
+    return dict(counts=counts, mesh_ms=statistics.median(runs["mesh"]["ms"]),
+                plain_ms=statistics.median(runs["plain"]["ms"]), dryrun_s=dry_s)
+
+
+def import_export_phase(penc, work: Path) -> dict:
+    """From raw audio to a served voice with the port alone: a demo corpus
+    (`make_demo_corpus`, 2 speakers x IMPORT_SENTENCES), imported on the card by
+    `import_blizzard_2023` and again on the CPU (every .mgc within 1e-4, every other file
+    equal), 2 train steps at v1 width on the imported folder, `export_model`, and one
+    request through TTSCube(model_path, phonemizer_path) on the card from the exported
+    volumes. Returns the launches of that request and the numbers to print."""
+    import tarfile
+
+    import numpy as np
+    import torch
+
+    from ttscube_tpu_torch.api import TTSCube, phonemizer_config
+    from ttscube_tpu_torch.convert import init_random
+    from ttscube_tpu_torch.models.phonemizer import Phonemizer
+    from ttscube_tpu_torch.scripts import (export_model, import_blizzard_2023,
+                                           import_phonemizer_blizzard, make_demo_corpus,
+                                           train_cubegan)
+    from ttscube_tpu_torch.utils import checkpoint as ckpt
+
+    corpus = work / "corpus"
+    t1 = time.perf_counter()
+    make_demo_corpus.main(make_demo_corpus.parser().parse_args(
+        ["--output", str(corpus), "--sentences", str(IMPORT_SENTENCES), "--speakers", "2"]))
+    corpus_s = time.perf_counter() - t1
+    times = {}
+    for where, device in (("card", []), ("cpu", ["--device", "cpu"])):
+        t1 = time.perf_counter()
+        for k in range(2):
+            t = import_blizzard_2023.main(
+                ["--input-file", str(corpus / f"align_spk{k}.txt"), "--speaker", f"spk{k}",
+                 "--prefix", f"spk{k}", "--dev-ratio", "0.125",
+                 "--train-output", str(work / where / "train"),
+                 "--dev-output", str(work / where / "dev"), *device])
+            times[where] = {n: times.get(where, {}).get(n, 0.0) + v for n, v in t.items()}
+        times[where]["wall_s"] = time.perf_counter() - t1
+    import_phonemizer_blizzard.main(["--input-file", str(corpus / "align_spk0.txt"),
+                                     "--output-base", str(work / "phonemizer_data")])
+    names = sorted(p.relative_to(work / "card") for p in (work / "card").rglob("*")
+                   if p.is_file())
+    check(names == sorted(p.relative_to(work / "cpu") for p in (work / "cpu").rglob("*")
+                          if p.is_file()) and len(names) == 2 * IMPORT_SENTENCES * 5,
+          f"import_export: {len(names)} files imported on the card")
+    worst_mgc, unequal = 0.0, []
+    for n in names:
+        a, b = work / "card" / n, work / "cpu" / n
+        if n.suffix == ".mgc":
+            x, y = np.load(a), np.load(b)
+            worst_mgc = max(worst_mgc, float(np.abs(x - y).max()) if x.shape == y.shape
+                            else float("inf"))
+        elif a.read_bytes() != b.read_bytes():
+            unequal.append(str(n))
+    card = times["card"]
+    per = {k: card[k] / card["audio_s"] for k in ("mel_s", "pitch_s", "png_s", "total_s")}
+    print(f"  import_blizzard_2023 of {2 * IMPORT_SENTENCES} utterances ({card['audio_s']:.1f} "
+          f"s of audio; the corpus written in {corpus_s:.1f} s): on the card {card['wall_s']:.2f} "
+          f"s, s per audio s: mel {per['mel_s']:.5f}, pitch {per['pitch_s']:.5f}, png "
+          f"{per['png_s']:.5f}, all {per['total_s']:.5f}; on the CPU {times['cpu']['wall_s']:.2f}"
+          f" s (mel {times['cpu']['mel_s'] / card['audio_s']:.5f}); card vs CPU: .mgc "
+          f"max_abs_err={worst_mgc:.3e} tol=1e-04, other files unequal: {unequal}", flush=True)
+    check(worst_mgc <= 1e-4 and not unequal, "import_export: the card's import differs "
+          "from the CPU's")
+
+    base = str(work / "model" / "cubegan")
+    t1 = time.perf_counter()
+    steps = train_cubegan.main(["--train-folder", str(work / "card" / "train"), "--dev-folder",
+                                str(work / "card" / "dev"), "--output-base", base,
+                                "--batch-size", str(TRAINER_BATCH), "--max-steps", "2",
+                                "--max-epochs", "1", "--epoch-generation", "0"])
+    train_s = time.perf_counter() - t1
+    check(steps == 2, f"import_export: {steps} train steps")
+    pbase = str(work / "model" / "phonemizer")
+    ckpt.save_params(pbase + ".sacc.best",
+                     init_random(Phonemizer(phonemizer_config(penc)), SEED + 1))
+    penc.save(pbase + ".encodings")
+    (work / "dist").mkdir()
+    t1 = time.perf_counter()
+    n_vol = export_model.main(["--input-model", base, "--input-phonemizer", pbase,
+                               "--output-model", str(work / "dist" / "voice")])
+    export_s = time.perf_counter() - t1
+    pkg = work / "pkg"
+    pkg.mkdir()
+    with open(pkg / "voice.tar.gz", "wb") as f:
+        for i in range(n_vol):
+            f.write((work / "dist" / f"voice-{i:02d}").read_bytes())
+    with tarfile.open(pkg / "voice.tar.gz", "r:gz") as tar:
+        tar.extractall(pkg)
+    cube = TTSCube(str(pkg / "cubegan"), str(pkg / "phonemizer"))  # the card
+    cube.warmup(speaker="spk0")
+    torch.cuda.synchronize()
+    zero_counts()
+    t1 = time.perf_counter()
+    pcm = cube(REQUESTS[0], speaker="spk0")
+    request_ms = (time.perf_counter() - t1) * 1e3
+    counts = read_counts()
+    print(f"  trained 2 steps on the imported folder in {train_s:.1f} s; export_model "
+          f"{export_s:.2f} s ({n_vol} volume(s)); TTSCube from the exported files on "
+          f"{cube.device}: request of {len(REQUESTS[0])} characters {request_ms:.1f} ms, "
+          f"{len(pcm)} samples, launches {counts}", flush=True)
+    check(pcm.dtype == np.int16 and len(pcm) > 0 and counts["fused_tail_stage"] == 1,
+          "import_export: the exported voice did not serve through B1")
+    return dict(counts=counts, per_audio_s=per, export_s=export_s, request_ms=request_ms)
 
 
 def main() -> int:
@@ -1052,6 +1356,19 @@ def main() -> int:
     print(f"  TTSCube.warmup {warm_s:.3f} s (the kernels were built and loaded in the build "
           f"phase); request chars={len(REQUESTS[0])}: first after warmup ms={lat[0]:.1f}, "
           f"steady state (next 3) ms={', '.join(f'{v:.1f}' for v in lat[1:])}", flush=True)
+    check(lat[0] <= FIRST_REQUEST_BOUND * statistics.median(lat[1:]),
+          f"warmup: the first request after warmup took {lat[0]:.1f} ms, more than "
+          f"{FIRST_REQUEST_BOUND} x the steady state's {statistics.median(lat[1:]):.1f} ms")
+    # where a first request's time goes (C7): a second TTSCube's first request after its
+    # warmup under the profiler, with host events, beside a steady request of the text
+    fresh = TTSCube.from_state_dicts(cfg, enc, penc, state, pstate, device="cuda")
+    fresh.warmup(speaker=speaker)
+    for what in ("a second TTSCube's first after its warmup", "steady"):
+        wall, busy, rows = host_profile(lambda: fresh(REQUESTS[0], speaker=speaker))
+        print(f"  request chars={len(REQUESTS[0])} {what} under the profiler: wall "
+              f"{wall:.1f} ms, device busy {busy:.1f} ms; host ops by self ms: " + "; ".join(
+                  f"{name} {ms:.2f} ({n})" for name, ms, n in rows), flush=True)
+    del fresh
     t1 = time.perf_counter()
     cube.warmup(speaker=speaker)
     print(f"  TTSCube.warmup again: {time.perf_counter() - t1:.3f} s", flush=True)
@@ -1456,7 +1773,7 @@ def main() -> int:
         torch.cuda.synchronize()
         zero_counts()
         t1 = time.perf_counter()
-        live = train_cubegan.main(argv)
+        live = train_cli(argv)
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t1
         trainer_counts = read_counts()
@@ -1484,7 +1801,7 @@ def main() -> int:
     ckpt.save_train_state(str(work / "timed.opt.last"), live)
     save_s = time.perf_counter() - t1
     t1 = time.perf_counter()
-    resumed = train_cubegan.main(argv + ["--resume", "--max-epochs", "0"])
+    resumed = train_cli(argv + ["--resume", "--max-epochs", "0"])
     torch.cuda.synchronize()
     resume_s = time.perf_counter() - t1
     check(resumed.step == live.step and same_train_state(live, resumed),
@@ -1552,7 +1869,7 @@ def main() -> int:
     torch.cuda.synchronize()
     zero_counts()
     t1 = time.perf_counter()
-    live16 = train_cubegan.main(argv16)
+    live16 = train_cli(argv16)
     torch.cuda.synchronize()
     cli16_s = time.perf_counter() - t1
     trainer16_counts = read_counts()
@@ -1562,7 +1879,7 @@ def main() -> int:
     check(live16.model.config.hifigan.compute_dtype == live16.model.config.disc_compute_dtype
           == "bfloat16" and all(p.dtype == torch.float32 for p in live16.model.parameters()),
           "bf16 trainer: the config or the parameters' type")
-    resumed16 = train_cubegan.main(argv16 + ["--resume", "--max-epochs", "0"])
+    resumed16 = train_cli(argv16 + ["--resume", "--max-epochs", "0"])
     check(resumed16.step == 2 and same_train_state(live16, resumed16),
           "bf16 trainer: --resume did not restore the state bit-equal")
     nb16 = tcg.batch_to_torch(CubeganCollate(CubeganEncodings(base16 + ".encodings"))(
@@ -1580,6 +1897,23 @@ def main() -> int:
     shutil.rmtree(work)
     say("trainer", t0, steps=TRAINER_STEPS, launches_b1=trainer_counts["fused_tail_stage"],
         launches_b2=trainer_counts["fused_tail_stage_grad"], bf16_steps=2)
+
+    # -- mesh ---------------------------------------------------------------------------
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    mesh_run = mesh_phase(enc, work)
+    shutil.rmtree(work)
+    say("mesh", t0, step_ms=f"{mesh_run['mesh_ms']:.1f}", plain_step_ms=
+        f"{mesh_run['plain_ms']:.1f}", launches_b1=mesh_run["counts"]["fused_tail_stage"],
+        launches_b2=mesh_run["counts"]["fused_tail_stage_grad"])
+
+    # -- import_export ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_import_"))
+    ie_run = import_export_phase(penc, work)
+    shutil.rmtree(work)
+    say("import_export", t0, s_per_audio_s=f"{ie_run['per_audio_s']['total_s']:.5f}",
+        export_s=f"{ie_run['export_s']:.2f}", request_ms=f"{ie_run['request_ms']:.1f}")
 
     # -- generator_resblock2 ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1802,11 +2136,12 @@ def main() -> int:
     say("profile", t0)
 
     # launches on the main paths (warmup, serve, serve_wide, serve_batch whole and
-    # chunked, train, train_bf16, trainer in fp32 and in bf16), each counted from zero
-    # just before its path ran
+    # chunked, train, train_bf16, trainer in fp32 and in bf16, the mesh's trainer and
+    # synthesis, the exported voice's request), each counted from zero just before its
+    # path ran
     paths = (warm_counts, serve_counts, wide_counts, batch_runs["whole"]["counts"],
              batch_runs["chunked"]["counts"], train_counts, bf16_counts, trainer_counts,
-             trainer16_counts)
+             trainer16_counts, mesh_run["counts"], ie_run["counts"])
     main_counts = {n: sum(c[n] for c in paths) for n in serve_counts}
     print(f"  main-path launches: {main_counts}; launches in the kernel phases: "
           f"{phase_launches}", flush=True)

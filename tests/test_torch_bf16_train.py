@@ -279,15 +279,17 @@ def test_cli_trains_bf16_and_resumes(bf16_cli):
     from ttscube_tpu_torch.data.encodings import CubeganEncodings
 
     cli, args, corpus, base = bf16_cli
-    live = cli.main(args + ["--compute-dtype", "bfloat16", "--max-steps", "2"])
+    live = cli.train_on(cli.parse_args(args + ["--compute-dtype", "bfloat16", "--max-steps",
+                                               "2"]), torch.device("cpu"))
     cfg = live.model.config
     assert live.step == 2 and cfg.hifigan.compute_dtype == cfg.disc_compute_dtype == "bfloat16"
     assert cfg.hifigan.upsample_initial_channel == TINY_HIFI["upsample_initial_channel"]
     assert live.model.gen.conv_pre.compute_dtype == live.model.msd.s0.conv_0.compute_dtype \
         == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in live.model.parameters())
-    resumed = cli.main(args + ["--compute-dtype", "bfloat16", "--max-steps", "2", "--resume",
-                               "--max-epochs", "0"])
+    resumed = cli.train_on(cli.parse_args(args + [
+        "--compute-dtype", "bfloat16", "--max-steps", "2", "--resume", "--max-epochs", "0"]),
+        torch.device("cpu"))
     assert resumed.step == 2 and resumed.model.config == cfg
     sa, sb = live.model.state_dict(), resumed.model.state_dict()
     assert all(torch.equal(v, sb[k]) for k, v in sa.items())

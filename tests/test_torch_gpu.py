@@ -739,3 +739,98 @@ def test_bf16_train_step_on_the_card(cuda):
                for v in s.values() if isinstance(v, torch.Tensor) and v.dim() > 0]
     assert all(p.dtype == torch.float32 for p in st.model.parameters())
     assert moments and all(v.dtype == torch.float32 for v in moments)
+
+
+# -- the mesh and the corpus import ---------------------------------------------------------
+
+@pytest.mark.gpu
+def test_mesh_step_on_one_card(cuda):
+    """A (1, 1) mesh on the card (FSDP2 over NCCL, one rank, parallel/mesh.py): two train
+    steps of a small config with the fused tail (B1 forward and B2 backward under the
+    mesh) against the same steps without the mesh, under deterministic algorithms with
+    TF32 off: each step's losses 1e-4 relative, the parameters after the first within 2
+    lr plus rounding and at most 0.1 % of them beyond 0.01 lr (chip_smoke.py's limits
+    for a resumed step). The second step fails these where the LSTMs run on the first
+    step's weights (nn.LSTM's flatten_parameters under FSDP2, `_keep_rnn_weights`)."""
+    from ttscube_tpu_torch.convert import init_random
+    from ttscube_tpu_torch.entry import _example_batch
+    from ttscube_tpu_torch.models import cubegan as tcg
+    from ttscube_tpu_torch.models.hifigan import HifiganConfig
+    from ttscube_tpu_torch.models.languasito import LanguasitoConfig
+    from ttscube_tpu_torch.ops import fused_tail
+    from ttscube_tpu_torch.parallel import mesh as pm
+
+    cfg = tcg.CubeganConfig(
+        languasito=LanguasitoConfig(num_phones=30, num_speakers=3, max_pitch=400,
+                                    max_duration=100),
+        hifigan=HifiganConfig(upsample_rates=(5, 3, 4, 4), upsample_kernel_sizes=(16, 16, 4, 4),
+                              upsample_initial_channel=512, resblock_kernel_sizes=(3,),
+                              resblock_dilation_sizes=((1, 3),), fused_tail_train=True),
+        mpd_channels=(8, 16), msd_width=8)
+    batch = tcg.batch_to_torch(_example_batch(B=2), cuda)
+
+    def steps(rank, world, device, mesh_shape):
+        model = init_random(tcg.Cubegan(cfg, train=True), 0).to(device)
+        step = tcg.train_step
+        if mesh_shape is not None:
+            step = pm.make_parallel_train_step(model, pm.make_mesh(*mesh_shape,
+                                                                   device=device), step)
+        state = tcg.create_train_state(model)
+        out, first = [], None
+        grads = fused_tail.fused_tail_stage_grad.launches
+        for _ in range(2):
+            state, m = step(state, batch)
+            out.append({k: float(v) for k, v in m.items()})
+            if first is None:
+                first = {n: (p.full_tensor() if hasattr(p, "full_tensor") else p)
+                         .detach().cpu() for n, p in model.named_parameters()}
+        return out, first, fused_tail.fused_tail_stage_grad.launches - grads
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32, torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain, p_first, _ = steps(0, 1, cuda, None)
+        meshed, m_first, b2 = pm.run_ranks(steps, 1, "cuda", args=((1, 1),))
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags[:3]
+        torch.use_deterministic_algorithms(flags[3])
+    assert b2 == 2
+    for i in range(2):
+        for k, v in plain[i].items():
+            assert abs(meshed[i][k] - v) <= 1e-4 * abs(v), (i, k)
+    lr, far, total = cfg.lr, 0, 0
+    for n, w in p_first.items():
+        d = (m_first[n] - w).abs()
+        spacing = torch.nextafter(w.abs(), torch.tensor(float("inf"))) - w.abs()
+        assert bool((d <= 2 * lr + 2 * spacing).all()), n
+        far += int((d > 0.01 * lr).sum())
+        total += d.numel()
+    assert far <= 1e-3 * total
+
+
+@pytest.mark.gpu
+def test_import_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """`import_blizzard_2023` of a small demo corpus with the mel on the card and on the
+    CPU: every .mgc within 1e-4 (fp64 transforms), every other file equal."""
+    from ttscube_tpu_torch.scripts import import_blizzard_2023, make_demo_corpus
+
+    make_demo_corpus.main(make_demo_corpus.parser().parse_args(
+        ["--output", str(tmp_path / "corpus"), "--sentences", "4"]))
+    for where, flags in (("card", []), ("cpu", ["--device", "cpu"])):
+        import_blizzard_2023.main(["--input-file", str(tmp_path / "corpus" / "align.txt"),
+                                   "--dev-ratio", "0.25", "--train-output",
+                                   str(tmp_path / where / "train"), "--dev-output",
+                                   str(tmp_path / where / "dev"), *flags])
+    names = sorted(p.relative_to(tmp_path / "card") for p in (tmp_path / "card").rglob("*")
+                   if p.is_file())
+    assert len(names) == 4 * 5
+    for n in names:
+        a, b = tmp_path / "card" / n, tmp_path / "cpu" / n
+        if n.suffix == ".mgc":
+            assert float(np.abs(np.load(a) - np.load(b)).max()) <= 1e-4, n
+        else:
+            assert a.read_bytes() == b.read_bytes(), n

@@ -1,8 +1,10 @@
-"""The port runs on a machine that has PyTorch and numpy but no JAX, flax, optax, yaml
-or msgpack. Every module of `ttscube_tpu_torch/`, `chip_smoke.py` and `chip_variants.py`
-is parsed here: none may import JAX, flax, optax, yaml, msgpack or the JAX package
-`ttscube_tpu` anywhere (the port reads and writes its checkpoint files with its own
-`utils/serialization.py` and `utils/config_io.py`)."""
+"""The port runs on a machine that has PyTorch and numpy but no JAX, flax, optax, yaml,
+msgpack, PIL or tqdm. Every module of `ttscube_tpu_torch/` (its mesh in `parallel/`,
+`entry.py` and the scripts included), `chip_smoke.py`, `chip_variants.py` and
+`chip_probes.py` is parsed here: none may import JAX, flax, optax, yaml, msgpack, PIL,
+tqdm or the JAX package `ttscube_tpu` anywhere (the port reads and writes its checkpoint
+files with its own `utils/serialization.py` and `utils/config_io.py`, and its PNGs with
+zlib)."""
 
 import ast
 from pathlib import Path
@@ -10,9 +12,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-SOURCES = sorted((ROOT / "ttscube_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                  ROOT / "chip_variants.py"]
-NEVER = {"jax", "jaxlib", "flax", "optax", "ttscube_tpu"}
+SOURCES = sorted((ROOT / "ttscube_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "chip_variants.py", ROOT / "chip_probes.py"]
+NEVER = {"jax", "jaxlib", "flax", "optax", "ttscube_tpu", "PIL", "tqdm"}
 NOT_AT_MODULE_LEVEL = {"yaml", "msgpack"}
 
 
@@ -58,9 +60,22 @@ def test_the_trainer_modules_are_checked():
             "ttscube_tpu_torch/ops/fused_resblock.py"} <= names
 
 
+def test_the_mesh_and_the_corpus_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"ttscube_tpu_torch/parallel/mesh.py", "ttscube_tpu_torch/entry.py",
+            "ttscube_tpu_torch/data/importers.py", "ttscube_tpu_torch/data/textgrid.py",
+            "ttscube_tpu_torch/dsp/pitch.py", "ttscube_tpu_torch/utils/repository.py",
+            "ttscube_tpu_torch/train/runtime.py"} <= names
+    assert {f"ttscube_tpu_torch/scripts/{n}.py" for n in (
+        "make_demo_corpus", "import_blizzard_2023", "import_phonemizer_blizzard",
+        "import_textgrid", "import_corpus", "export_model")} <= names
+
+
 def test_the_guard_catches_what_it_guards():
     bad = ast.parse("import yaml\nfrom ttscube_tpu.dsp import mel\n"
-                    "def f():\n    import msgpack\n    import jax.numpy as jnp\n")
+                    "def f():\n    import msgpack\n    import jax.numpy as jnp\n"
+                    "    from PIL import Image\n    import tqdm\n")
     found = list(_imports(bad))
     assert ("yaml", True) in found and ("ttscube_tpu", True) in found
     assert ("msgpack", False) in found and ("jax", False) in found
+    assert ("PIL", False) in found and ("tqdm", False) in found

@@ -225,12 +225,14 @@ def test_fused_train_has_no_batch_cap(tiny, monkeypatch):
     (tests/test_cubegan.py::test_fused_train_batch_gate_falls_back_with_warning); that
     cap was set on the TPU. The port's fused path has none, since B2's blocks walk the
     tiles of all B windows: at B = 17 the step goes through generator_apply_fused_train
-    and gives the plain generator's audio."""
+    (which `Generator.fused_train` calls) and gives the plain generator's audio."""
+    from ttscube_tpu_torch.models import hifigan_fused
+
     _, _, _, tm = tiny
     tb = tcg.batch_to_torch(toy_train_batch(B=17, seed=5), "cpu")
     starts = torch.arange(17) % 5
-    calls, fused_apply = [], tcg.generator_apply_fused_train
-    monkeypatch.setattr(tcg, "generator_apply_fused_train",
+    calls, fused_apply = [], hifigan_fused.generator_apply_fused_train
+    monkeypatch.setattr(hifigan_fused, "generator_apply_fused_train",
                         lambda gen, cond, h: calls.append(cond.shape[0]) or
                         fused_apply(gen, cond, h))
     with torch.no_grad():

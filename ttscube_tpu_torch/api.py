@@ -8,11 +8,13 @@ Steps, as in the JAX class: text → aligned phonemizer → collate → duration
 total frame count comes back to the host) → frame bucket (multiples of FRAME_BUCKET,
 at most MAX_FRAMES) → Cubegan.infer at that bucket → trim to total·hop → int16.
 
-`TTSCube.warmup()` runs the whole path once for each pair of text length and frame
-bucket it is given, so that a server's first requests do not pay for what a first
-call sets up on the card: the kernels' build (nvcc, at their first launch), the packed
-stage weights of the fused generator (`Generator.stage_weights`), cuDNN's handles and
-algorithm choices, and the caching allocator's blocks.
+`TTSCube.warmup()` runs the whole path of a request, the audio's copy to the host and
+its int16 conversion included, once for each pair of text length and frame bucket it is
+given, so that a server's first requests do not pay for what a first call sets up on
+the card: the kernels' build (nvcc, at their first launch), the packed stage weights of
+the fused generator (`Generator.stage_weights`), cuDNN's handles and algorithm choices,
+the caching allocator's blocks, the first copies back to the host, and the modules of
+the phonemizer's kernels at each range of text lengths.
 
 `TTSCube(model_path, phonemizer_path)` reads the JAX package's files (`.yaml`,
 `.encodings`, flax msgpack `.model`) with the port's own readers
@@ -134,27 +136,45 @@ class TTSCube:
         bucket = int(np.clip(((total + FRAME_BUCKET - 1) // FRAME_BUCKET) * FRAME_BUCKET,
                              FRAME_BUCKET, MAX_FRAMES))
         audio, _ = self.model.infer(X, max_frames=bucket)
-        audio = audio[0, : total * self.config.hop_size].float().cpu().numpy()
-        return audio, total
+        return self._to_host(audio, total), total
+
+    def _to_host(self, audio, total: int) -> np.ndarray:
+        """The first item's audio of `total` frames, fp32 on the host."""
+        return audio[0, : total * self.config.hop_size].float().cpu().numpy()
+
+    @staticmethod
+    def _int16(audio: np.ndarray) -> np.ndarray:
+        return np.asarray(np.clip(audio, -1, 1) * 32767, dtype=np.int16)
 
     @torch.inference_mode()
     def warmup(self, frame_buckets=(FRAME_BUCKET, 2 * FRAME_BUCKET),
                char_lens=(CHAR_BUCKET, 2 * CHAR_BUCKET), speaker: str = "none") -> None:
-        """Run the duration pass and synthesis once for each text length in
-        `char_lens` and each frame bucket in `frame_buckets`, through the real text →
-        phonemizer → collate path, as the JAX TTSCube.warmup does. A server calls it
-        once at start-up."""
+        """Run what a request runs once for each text length in `char_lens` and each
+        frame bucket in `frame_buckets`: the real text → phonemizer → collate path, as
+        the JAX TTSCube.warmup does, the duration pass, synthesis, and the audio's copy
+        to the host and its int16 conversion; then the phonemizer alone on texts of 2,
+        4, ..., 512 characters (`_warm_phonemizer`). A server calls it once at start-up."""
         for n in char_lens:
             # about n characters of short words: the aligned phonemizer maps characters
             # about one to one, so the phone axis lands near the n-phone collate bucket
             text = " ".join("ab" for _ in range(max(1, n // 3)))[: max(n - 1, 2)]
             X = self._prepare(text, speaker)
-            self._frames(X)
+            total = self._frames(X)
             for b in frame_buckets:
-                self.model.infer(X, max_frames=b)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                audio, _ = self.model.infer(X, max_frames=b)
+                self._int16(self._to_host(audio, min(total, b)))
+        self._warm_phonemizer()
+
+    def _warm_phonemizer(self, longest: int = 512) -> None:
+        """The phonemizer alone on one text of each power of two characters up to
+        `longest`. It runs on each text's exact length, as in the JAX API; on the card
+        each range of lengths picks cuDNN kernels of its own, whose modules CUDA loads
+        at their first launch (fault C7, PERF.md §5)."""
+        n = 2
+        while n <= longest:
+            self.text2feat("a" * n)
+            n *= 2
 
     def __call__(self, text: str, speaker: str = "none") -> np.ndarray:
         audio, _ = self.synthesize(text, speaker)
-        return np.asarray(np.clip(audio, -1, 1) * 32767, dtype=np.int16)
+        return self._int16(audio)

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ttscube_tpu_torch.models.languasito import MaskedEmbed
 from ttscube_tpu_torch.ops.conv import (Conv1d, SNConv1d, WNConv1d, WNConv2d,
@@ -35,66 +36,65 @@ from ttscube_tpu_torch.utils.serialization import msgpack_restore
 
 _T3 = (2, 1, 0)  # (k, a, b) ↔ (b, a, k)
 _T4 = (3, 2, 0, 1)  # (kh, kw, in, out) → (out, in, kh, kw)
-_T4_BACK = (2, 3, 1, 0)
 
 
-def _leaf_to_torch(mod: nn.Module, p: dict) -> dict:
-    a = lambda x: torch.from_numpy(np.array(x, dtype=np.float32))
+def leaf_layout(mod: nn.Module) -> dict:
+    """Each parameter of a leaf module that has a JAX counterpart: torch name → (JAX
+    name, axes), where the torch tensor is `np.transpose(jax_array, axes)` (axes None:
+    unchanged). An LSTM's `bias_hh` has none (it is kept at zero; see `_leaf_to_torch`)."""
     if isinstance(mod, (Conv1d, SNConv1d)):
-        out = {"kernel": a(np.transpose(p["kernel"], _T3))}
+        out = {"kernel": ("kernel", _T3)}
     elif isinstance(mod, (WNConv1d, WNConvTranspose1d)):
-        out = {"v": a(np.transpose(p["v"], _T3)), "g": a(p["g"])}
+        out = {"v": ("v", _T3), "g": ("g", None)}
     elif isinstance(mod, WNConv2d):
-        out = {"v": a(np.transpose(p["v"], _T4)), "g": a(p["g"])}
+        out = {"v": ("v", _T4), "g": ("g", None)}
     elif isinstance(mod, Dense):
-        out = {"weight": a(np.asarray(p["kernel"]).T)}
+        out = {"weight": ("kernel", (1, 0))}
     elif isinstance(mod, Embed):
-        return {"weight": a(p["embedding"])}
+        return {"weight": ("embedding", None)}
     elif isinstance(mod, MaskedEmbed):
-        return {"embedding": a(p["embedding"])}
+        return {"embedding": ("embedding", None)}
     elif isinstance(mod, LSTM):
         out = {}
         for layer in range(mod.num_layers):
             for tsfx, jsfx in (("", ""), ("_reverse", "_rev"))[: 1 + mod.bidirectional]:
-                out[f"weight_ih_l{layer}{tsfx}"] = a(np.asarray(p[f"wi_l{layer}{jsfx}"]).T)
-                out[f"weight_hh_l{layer}{tsfx}"] = a(np.asarray(p[f"wh_l{layer}{jsfx}"]).T)
-                out[f"bias_ih_l{layer}{tsfx}"] = a(p[f"b_l{layer}{jsfx}"])
-                out[f"bias_hh_l{layer}{tsfx}"] = torch.zeros(4 * mod.hidden_size)
+                out[f"weight_ih_l{layer}{tsfx}"] = (f"wi_l{layer}{jsfx}", (1, 0))
+                out[f"weight_hh_l{layer}{tsfx}"] = (f"wh_l{layer}{jsfx}", (1, 0))
+                out[f"bias_ih_l{layer}{tsfx}"] = (f"b_l{layer}{jsfx}", None)
         return out
     else:
         raise TypeError(f"no JAX layout rule for {type(mod).__name__}")
     if getattr(mod, "bias", None) is not None:
-        out["bias"] = a(p["bias"])
+        out["bias"] = ("bias", None)
     return out
 
 
+def _leaf_to_torch(mod: nn.Module, p: dict) -> dict:
+    out = {name: torch.from_numpy(np.array(np.transpose(p[jname], axes) if axes else
+                                           p[jname], dtype=np.float32))
+           for name, (jname, axes) in leaf_layout(mod).items()}
+    if isinstance(mod, LSTM):
+        for name in list(out):
+            if name.startswith("bias_ih"):
+                out[name.replace("bias_ih", "bias_hh")] = torch.zeros(4 * mod.hidden_size)
+    return out
+
+
+def host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as an fp32 numpy array; a sharded one (a DTensor, parallel/mesh.py) is
+    gathered first, which every rank of its mesh must call."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().cpu().float().numpy()
+
+
 def _leaf_to_jax(mod: nn.Module, sd: dict) -> dict:
-    n = lambda name: sd[name].detach().cpu().float().numpy()
-    if isinstance(mod, (Conv1d, SNConv1d)):
-        out = {"kernel": np.ascontiguousarray(np.transpose(n("kernel"), _T3))}
-    elif isinstance(mod, (WNConv1d, WNConvTranspose1d)):
-        out = {"v": np.ascontiguousarray(np.transpose(n("v"), _T3)), "g": n("g")}
-    elif isinstance(mod, WNConv2d):
-        out = {"v": np.ascontiguousarray(np.transpose(n("v"), _T4_BACK)), "g": n("g")}
-    elif isinstance(mod, Dense):
-        out = {"kernel": np.ascontiguousarray(n("weight").T)}
-    elif isinstance(mod, Embed):
-        return {"embedding": n("weight")}
-    elif isinstance(mod, MaskedEmbed):
-        return {"embedding": n("embedding")}
-    elif isinstance(mod, LSTM):
-        out = {}
-        for layer in range(mod.num_layers):
-            for tsfx, jsfx in (("", ""), ("_reverse", "_rev"))[: 1 + mod.bidirectional]:
-                out[f"wi_l{layer}{jsfx}"] = np.ascontiguousarray(n(f"weight_ih_l{layer}{tsfx}").T)
-                out[f"wh_l{layer}{jsfx}"] = np.ascontiguousarray(n(f"weight_hh_l{layer}{tsfx}").T)
-                out[f"b_l{layer}{jsfx}"] = (n(f"bias_ih_l{layer}{tsfx}")
-                                            + n(f"bias_hh_l{layer}{tsfx}"))
-        return out
-    else:
-        raise TypeError(f"no JAX layout rule for {type(mod).__name__}")
-    if getattr(mod, "bias", None) is not None:
-        out["bias"] = n("bias")
+    out = {}
+    for name, (jname, axes) in leaf_layout(mod).items():
+        a = host(sd[name])
+        if isinstance(mod, LSTM) and name.startswith("bias_ih"):
+            a = a + host(sd[name.replace("bias_ih", "bias_hh")])
+        out[jname] = np.ascontiguousarray(np.transpose(a, np.argsort(axes))) if axes else a
     return out
 
 
@@ -145,17 +145,34 @@ def spectral_to_jax(module: nn.Module) -> dict:
 
     def walk(mod):
         if isinstance(mod, SNConv1d):
-            return {"u": mod.u.detach().cpu().float().numpy()}
+            return {"u": host(mod.u)}
         sub = {name: walk(child) for name, child in mod.named_children()}
         return {k: v for k, v in sub.items() if v}
 
     return walk(module)
 
 
+def like(full: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """`full` on `ref`'s device and type, and sharded as `ref` where that is a DTensor
+    (each rank keeps its own shard of its own copy of `full`; no communication)."""
+    if isinstance(ref, DTensor):
+        return distribute_tensor(full.to(ref.device, ref.dtype), ref.device_mesh,
+                                 ref.placements, src_data_rank=None)
+    return full.to(ref.device, ref.dtype)
+
+
+def load_state_dict(module: nn.Module, sd: dict) -> None:
+    """`module.load_state_dict(sd, strict=True)` for whole tensors, also where the
+    module's parameters are sharded (parallel/mesh.py)."""
+    own = module.state_dict()
+    module.load_state_dict({k: like(v, own[k]) if isinstance(own.get(k), DTensor) else v
+                            for k, v in sd.items()}, strict=True)
+
+
 def load_jax_params(module: nn.Module, tree: dict, spectral: dict | None = None) -> nn.Module:
     """Copy a JAX parameter tree (and spectral tree) onto `module` (strict: every
     weight must be there)."""
-    module.load_state_dict(jax_to_state_dict(module, tree, spectral), strict=True)
+    load_state_dict(module, jax_to_state_dict(module, tree, spectral))
     return module
 
 
@@ -315,15 +332,14 @@ def _load_train_state(state, tree: dict, where: str):
                 n = named[id(p)]
                 updates.append((opt, p, {} if count == 0 else {
                     "step": torch.tensor(float(count)),
-                    "exp_avg": mu[n].to(p.device, p.dtype),
-                    "exp_avg_sq": nu[n].to(p.device, p.dtype)}))
+                    "exp_avg": like(mu[n], p), "exp_avg_sq": like(nu[n], p)}))
     spectral = tree.get("spectral")
     sd = jax_to_state_dict(model, tree["params"], {"msd": spectral} if spectral else None)
     own = model.state_dict()
     wrong = [k for k, v in sd.items() if k not in own or own[k].shape != v.shape]
     if wrong or len(sd) != len(own):
         raise ValueError(f"'{where}' does not fit this model: {wrong[:3] or 'missing weights'}")
-    model.load_state_dict(sd, strict=True)
+    load_state_dict(model, sd)
     for opt, p, st in updates:
         opt.state.pop(p, None)
         if st:

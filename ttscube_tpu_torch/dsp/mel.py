@@ -168,20 +168,22 @@ class MelSpec:
             return y
         raise ValueError(f"unknown padding mode {c.padding}")
 
-    def magnitude(self, y: torch.Tensor) -> torch.Tensor:
-        """Linear-magnitude spectrogram (..., frames, n_freq)."""
+    def magnitude(self, y: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+        """Linear-magnitude spectrogram (..., frames, n_freq), computed in `dtype`."""
         c = self.config
-        cos_m, sin_m, _ = self._on(y.device)
-        frames = frame_signal(self._pad(y.float()), c.n_fft, c.hop_length)
+        cos_m, sin_m, _ = (t.to(dtype) for t in self._on(y.device))
+        frames = frame_signal(self._pad(y.to(dtype)), c.n_fft, c.hop_length)
         re = frames @ cos_m
         im = frames @ sin_m
         return torch.sqrt(re * re + im * im + c.mag_floor_sq)
 
-    def __call__(self, y: torch.Tensor) -> torch.Tensor:
+    def __call__(self, y: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+        """The log-mel, fp32; `dtype` is the arithmetic's type (fp64: the fp32 constants'
+        exact transform, rounded once, on any device)."""
         c = self.config
-        mel = self.magnitude(y) @ self._on(y.device)[2]
+        mel = self.magnitude(y, dtype) @ self._on(y.device)[2].to(dtype)
         if c.log_scale == "log10":
-            return torch.log10(torch.clamp(mel, min=1e-5))
+            return torch.log10(torch.clamp(mel, min=1e-5)).float()
         if c.log_scale == "ln":
-            return torch.log(torch.clamp(mel, min=1e-5))
+            return torch.log(torch.clamp(mel, min=1e-5)).float()
         raise ValueError(f"unknown log scale {c.log_scale}")

@@ -35,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.distributed.fsdp import FSDPModule
 
 from ttscube_tpu_torch.dsp.mel import MelSpec, gan_mel_config
 from ttscube_tpu_torch.models.hifigan import (_DTYPES, Generator, HifiganConfig,
@@ -42,8 +43,6 @@ from ttscube_tpu_torch.models.hifigan import (_DTYPES, Generator, HifiganConfig,
                                               MultiScaleDiscriminator, discriminator_loss,
                                               feature_loss, generate_chunked,
                                               generator_loss)
-from ttscube_tpu_torch.models.hifigan_fused import (generator_apply_fused,
-                                                    generator_apply_fused_train)
 from ttscube_tpu_torch.models.languasito import (Languasito2, LanguasitoConfig,
                                                  languasito_losses)
 
@@ -120,30 +119,30 @@ class Cubegan(nn.Module):
             self.msd = MultiScaleDiscriminator(width=config.msd_width, compute_dtype=cd)
         self.mel = MelSpec(gan_mel_config(config.sample_rate, hop_length=config.hop_size))
 
-    @torch.inference_mode()
+    def _no_autograd(self):
+        """inference_mode, or no_grad for a model sharded over a mesh (parallel/mesh.py):
+        FSDP2 gathers its weights into tensors that must keep a version counter."""
+        return torch.no_grad() if isinstance(self, FSDPModule) else torch.inference_mode()
+
     def forward(self, X):
         """Teacher-forced synthesis: the generator on the conditioning the text model
         builds from the batch's own alignment and pitch. Returns audio (B, frames·hop)."""
-        _, _, _, cond = self.lang(X)
-        return self.gen(cond)
+        with self._no_autograd():
+            _, _, _, cond = self.lang(X)
+            return self.gen(cond)
 
-    @torch.inference_mode()
     def infer(self, X, max_frames: int, chunk_frames: int | None = None):
         """Free synthesis: (audio (B, max_frames·hop) fp32, aux dict). With
         `chunk_frames` the generator runs in windows of that many frames plus a halo
         on each side, one after another (`generate_chunked`), which bounds its memory
         for long utterances and large batches; None runs the whole utterance at once."""
-        cond, aux = self.lang.infer(X, max_frames)
-        h = self.config.hifigan
-        if h.fused_tail:
-            gen = lambda c: generator_apply_fused(
-                self.gen, c, h, compute_dtype=h.torch_compute_dtype,
-                storage_dtype=h.torch_storage_dtype, fuse_channels=h.fuse_channels)
-        else:
-            gen = self.gen
-        if chunk_frames is not None:
-            return generate_chunked(gen, cond, h.total_upsample, chunk=chunk_frames), aux
-        return gen(cond), aux
+        with self._no_autograd():
+            cond, aux = self.lang.infer(X, max_frames)
+            h = self.config.hifigan
+            gen = self.gen.fused if h.fused_tail else self.gen
+            if chunk_frames is not None:
+                return generate_chunked(gen, cond, h.total_upsample, chunk=chunk_frames), aux
+            return gen(cond), aux
 
     # -- the training step's pieces -----------------------------------------------------
 
@@ -177,7 +176,7 @@ class Cubegan(nn.Module):
         cond_w, y_w = self._crop(cond, batch["y_audio"], starts, window)
         check_fused_tail_train(h)
         if h.fused_tail_train:
-            y_hat = generator_apply_fused_train(self.gen, cond_w, h)
+            y_hat = self.gen.fused_train(cond_w)
         else:
             y_hat = self.gen(cond_w)
         return (dur_logits, pitch, vuv, y_hat), y_w

@@ -17,6 +17,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.fsdp import FSDPModule
 
 from ttscube_tpu_torch.ops.conv import SNConv1d, WNConv1d, WNConv2d, WNConvTranspose1d
 from ttscube_tpu_torch.ops.fused_mrf import MrfWeights, pack_mrf_weights
@@ -137,12 +138,15 @@ class Generator(nn.Module):
         """Stage i's weights packed for its fused kernel: the whole stage (upsample, MRF,
         and on the last stage conv_post) as `TailWeights` when its upsample has kernel ==
         stride, else its MRF as `MrfWeights`. Packed once and kept until a parameter
-        changes (in place or by a move to another device). Raises ValueError, naming the
-        stage, where the stage is beyond its kernel's limits."""
-        key = (compute_dtype, self.conv_post.v.device,
-               tuple(p._version for p in self.parameters()))
+        changes (in place or by a move to another device). A sharded generator
+        (parallel/mesh.py) is packed at every call: FSDP2 gathers new values into its
+        weights without changing their versions. Raises ValueError, naming the stage,
+        where the stage is beyond its kernel's limits."""
+        params = list(self.parameters())
+        key = None if isinstance(self, FSDPModule) else (
+            compute_dtype, self.conv_post.v.device, tuple(p._version for p in params))
         cached = self._stage_cache.get((i, compute_dtype))
-        if cached is not None and cached[0] == key:
+        if key is not None and cached is not None and cached[0] == key:
             return cached[1]
         c = self.config
         last = i == len(c.upsample_rates) - 1
@@ -169,12 +173,32 @@ class Generator(nn.Module):
             raise ValueError(f"generator stage {i} (C = {convs[0].v.shape[0]}, upsample "
                              f"{c.upsample_rates[i]}/{c.upsample_kernel_sizes[i]}) cannot be "
                              f"fused: {e}") from e
-        self._stage_cache[(i, compute_dtype)] = (key, packed)
+        if key is not None:
+            self._stage_cache[(i, compute_dtype)] = (key, packed)
         return packed
 
     def tail_weights(self, compute_dtype=None) -> TailWeights:
         """The last stage's weights packed for the fused tail stage (`stage_weights`)."""
         return self.stage_weights(len(self.config.upsample_rates) - 1, compute_dtype)
+
+    def fused(self, mel):
+        """Serving through the fused kernels (`hifigan_fused.generator_apply_fused`) at
+        the config's compute and storage types and `fuse_channels`. A method, so that a
+        sharded generator gathers its weights for it as for `forward`
+        (parallel/mesh.py)."""
+        from ttscube_tpu_torch.models.hifigan_fused import generator_apply_fused
+
+        c = self.config
+        return generator_apply_fused(self, mel, c, compute_dtype=c.torch_compute_dtype,
+                                     storage_dtype=c.torch_storage_dtype,
+                                     fuse_channels=c.fuse_channels)
+
+    def fused_train(self, mel):
+        """Training through the fused tail (`hifigan_fused.generator_apply_fused_train`:
+        B1 forward, B2 backward); a method for the reason `fused` is."""
+        from ttscube_tpu_torch.models.hifigan_fused import generator_apply_fused_train
+
+        return generator_apply_fused_train(self, mel, self.config)
 
     def forward(self, mel):
         c = self.config

@@ -153,13 +153,19 @@ def languasito_losses(dur_logits, pitch, vuv, batch, max_pitch: float):
 
     As in the JAX function, the pitch and VUV means run over the valid frames
     (`y_frame_mask`), not over the padded batch; a batch without a frame mask takes
-    plain means. Returns (loss_duration, loss_pitch)."""
+    plain means. A data-parallel shard of a batch (parallel/mesh.py) carries the global
+    counts over the data size as `dur_denom` and `frame_denom`, and divides by those, so
+    that the mean of the shards' losses is the global batch's. Returns (loss_duration,
+    loss_pitch)."""
     t_dur = batch["y_dur"].long()
     dur_mask = (batch["x_char"] != 0).float()
     logp = torch.log_softmax(dur_logits, dim=-1)
     t_dur_safe = t_dur.clamp(0, dur_logits.shape[-1] - 1)
     nll = -torch.gather(logp, -1, t_dur_safe[..., None])[..., 0]
-    loss_duration = (nll * dur_mask).sum() / dur_mask.sum().clamp(min=1)
+    dur_denom = batch.get("dur_denom")
+    if dur_denom is None:
+        dur_denom = dur_mask.sum().clamp(min=1)
+    loss_duration = (nll * dur_mask).sum() / dur_denom
 
     t_pitch = batch["y_pitch"]
     t_vuv = (t_pitch > 1).float()
@@ -171,6 +177,8 @@ def languasito_losses(dur_logits, pitch, vuv, batch, max_pitch: float):
         loss_pitch = pitch_l1.mean() + vuv_l1.mean()
     else:
         m = fmask[:, :F].float()
-        denom = m.sum().clamp(min=1.0)
+        denom = batch.get("frame_denom")
+        if denom is None:
+            denom = m.sum().clamp(min=1.0)
         loss_pitch = (pitch_l1 * m).sum() / denom + (vuv_l1 * m).sum() / denom
     return loss_duration, loss_pitch

@@ -111,6 +111,29 @@ def load(name: str) -> ctypes.CDLL:
     return load_all([name])[0]
 
 
+def load_host(source: Path, flags: tuple) -> ctypes.CDLL:
+    """A C++ source outside `csrc/` (such as the repo's `native/pitch.cpp`) built with
+    `g++ <flags> -shared` into `_build/<stem>-<hash>/lib<stem>.so`, the hash over the
+    source and the flags, at first use, and loaded. A failed build raises."""
+    h = hashlib.sha256(source.read_bytes() + b"\0" + " ".join(flags).encode())
+    target = BUILD_ROOT / f"{source.stem}-{h.hexdigest()[:16]}" / f"lib{source.stem}.so"
+    key = str(target)
+    with _lock:
+        if key not in _libs:
+            if not target.exists():
+                target.parent.mkdir(parents=True, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
+                os.close(fd)
+                r = subprocess.run(["g++", *flags, "-shared", "-o", tmp, str(source)],
+                                   capture_output=True, text=True)
+                if r.returncode != 0:
+                    os.unlink(tmp)
+                    raise RuntimeError(f"g++ failed for {source}:\n{r.stdout}{r.stderr}")
+                os.replace(tmp, target)  # atomic, as for the kernels
+            _libs[key] = ctypes.CDLL(key)
+        return _libs[key]
+
+
 _bound: set = set()  # (source, function) pairs already typed and checked
 
 

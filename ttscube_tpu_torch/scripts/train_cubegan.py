@@ -13,7 +13,13 @@ the card unless `--device cpu`. `--compute-dtype bfloat16` runs the generator's 
 the discriminators' convs with bf16 operands (weights, grads and the optimizer state
 stay fp32); `--fused-tail-train` is fp32 only (its backward kernel, B2, has no bf16
 form), so the two together are refused. Not ported yet: LM conditioning (`--lm`,
-A11.2) and a device mesh (`--mesh-data`/`--mesh-model`, A9).
+A11.2).
+
+With `--mesh-data D` and/or `--mesh-model M` it trains over a (D, M) mesh of ranks
+(parallel/mesh.py; the JAX trainer's flags): one rank per card, or with `--device cpu`
+gloo processes, which this command starts itself (a mesh of one rank runs in this
+process). The batch is the global batch and must divide by D. Every rank reads the
+corpus and resumes from the same files; rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -40,8 +46,10 @@ def parser() -> ArgumentParser:
                    help="conditioning: fasttext:<LANG> or hf:<model> (not ported yet)")
     p.add_argument("--max-epochs", dest="max_epochs", type=int, default=-1)
     p.add_argument("--max-steps", dest="max_steps", type=int, default=-1)
-    p.add_argument("--mesh-data", dest="mesh_data", type=int, default=1)
-    p.add_argument("--mesh-model", dest="mesh_model", type=int, default=1)
+    p.add_argument("--mesh-data", dest="mesh_data", type=int, default=None,
+                   help="ranks on the mesh's 'data' axis (default: no mesh)")
+    p.add_argument("--mesh-model", dest="mesh_model", type=int, default=None,
+                   help="ranks on the mesh's 'model' axis (default: no mesh)")
     p.add_argument("--opt-save-every", dest="opt_save_every", type=int, default=1,
                    help="epochs between whole-state .opt.last saves (default 1)")
     p.add_argument("--fused-tail-train", dest="fused_tail_train", action="store_true",
@@ -70,24 +78,53 @@ def parse_args(argv=None):
         p.error(f"--fused-tail-train with --compute-dtype {args.compute_dtype}: the fused "
                 "tail's backward kernel (B2) is fp32 only; drop --fused-tail-train for a "
                 "bf16 run")
+    if mesh_shape(args) and args.batch_size % mesh_shape(args)[0]:
+        p.error(f"--batch-size {args.batch_size} does not divide over --mesh-data "
+                f"{mesh_shape(args)[0]}")
     return args
+
+
+def mesh_shape(args):
+    """(data, model) when a mesh flag is given, else None."""
+    if args.mesh_data is None and args.mesh_model is None:
+        return None
+    return (args.mesh_data or 1, args.mesh_model or 1)
 
 
 def _refuse_unported(args) -> None:
     if args.lm:
         raise NotImplementedError(f"--lm {args.lm} is not ported yet (ROADMAP.md A11.2: "
                                   "HF and fastText conditioning)")
-    if args.mesh_data * args.mesh_model > 1:
-        raise NotImplementedError("--mesh-data/--mesh-model above 1 are not ported yet "
-                                  "(ROADMAP.md A9: multi-GPU)")
 
 
-def main(argv=None):
-    """Train as the flags say; returns the final TrainState."""
+def main(argv=None) -> int:
+    """Train as the flags say; returns the final step count (rank 0's on a mesh). A
+    caller that needs the final TrainState calls `train_on`."""
     args = parse_args(argv)
     _refuse_unported(args)
-
     from ttscube_tpu_torch import resolve_device
+
+    shape = mesh_shape(args)
+    if shape is None:
+        return int(train_on(args, resolve_device(args.device)).step)
+    import torch
+
+    from ttscube_tpu_torch.parallel.mesh import run_ranks
+
+    world = shape[0] * shape[1]
+    return run_ranks(_rank, world, args.device, args=(args,),
+                     threads=max(1, torch.get_num_threads() // world))
+
+
+def _rank(rank, world, device, args):
+    from ttscube_tpu_torch.parallel.mesh import make_mesh
+
+    return int(train_on(args, device, make_mesh(*mesh_shape(args), device=device)).step)
+
+
+def train_on(args, device, mesh=None):
+    """The training run of the parsed flags `args` on the torch.device `device`, over
+    `mesh` where there is one (every rank calls it); returns the final TrainState."""
     from ttscube_tpu_torch.convert import init_random
     from ttscube_tpu_torch.data.collate import CubeganCollate
     from ttscube_tpu_torch.data.datasets import CubeganDataset
@@ -97,11 +134,12 @@ def main(argv=None):
     from ttscube_tpu_torch.models.languasito import LanguasitoConfig
     from ttscube_tpu_torch.train.loop import train
     from ttscube_tpu_torch.train.runtime import cubegan_synthesize_dataset
+    from ttscube_tpu_torch.utils.ranks import barrier, is_writer
     from ttscube_tpu_torch.utils.checkpoint import save_config
 
-    device = resolve_device(args.device)
     save_config(args.output_base, {"sample_rate": args.sample_rate,
                                    "hop_size": args.hop_size, "conditioning": args.lm})
+    barrier()  # rank 0 wrote it
     sys.stdout.write("=================Config=================\n")
     with open(args.output_base + ".yaml") as f:
         sys.stdout.write(f.read())
@@ -114,10 +152,11 @@ def main(argv=None):
     sys.stdout.write(f"train={len(trainset)} dev={len(devset)} examples\n")
 
     enc_path = args.output_base + ".encodings"
-    if not (os.path.exists(enc_path) and args.resume):
+    if not (os.path.exists(enc_path) and args.resume) and is_writer():
         computed = CubeganEncodings()
         computed.compute(trainset)
         computed.save(enc_path)
+    barrier()
     # the config is built from the encodings as the file holds them (max_pitch rounded
     # to an int), so that a fresh run, a resumed run and the served model agree; the
     # JAX trainer takes the unrounded max_pitch on a fresh run only
@@ -133,14 +172,21 @@ def main(argv=None):
                                          compute_dtype=args.compute_dtype),
         disc_compute_dtype=args.compute_dtype)
     model = init_random(Cubegan(cfg, train=True), seed=0).to(device)
-    state = create_train_state(model, seed=0)
+    step, vstep = train_step, val_step
+    if mesh is not None:
+        from ttscube_tpu_torch.parallel.mesh import (make_parallel_train_step,
+                                                     make_parallel_val_step)
+
+        step = make_parallel_train_step(model, mesh, train_step)
+        vstep = make_parallel_val_step(model, mesh, val_step)
+    state = create_train_state(model, seed=0)  # after sharding: it holds the shards
     collate = CubeganCollate(encodings, hop=args.hop_size)
 
     def on_epoch_end(epoch, st):
         cubegan_synthesize_dataset(st.model, devset, collate, "generated_files/free/",
                                    limit=args.generation_limit)
 
-    return train(state=state, train_step=train_step, val_step=val_step,
+    return train(state=state, train_step=step, val_step=vstep,
                  trainset=trainset, devset=devset, collate=collate,
                  batch_size=args.batch_size, output_base=args.output_base,
                  selection_metric="loss_mel", device=device, max_epochs=args.max_epochs,

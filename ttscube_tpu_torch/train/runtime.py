@@ -1,15 +1,18 @@
-"""Devset synthesis during training: counterpart of
-`ttscube_tpu/train/runtime.py::cubegan_synthesize_dataset`, the trainer's epoch hook.
-Not ported: `synthesize_devset` and `synthesize_from_checkpoint` (other model
-families)."""
+"""Devset synthesis during training and spectrogram images: counterpart of
+`ttscube_tpu/train/runtime.py::cubegan_synthesize_dataset`, the trainer's epoch hook, and
+`render_spectrogram`, the corpus importer's PNG. Not ported: `synthesize_devset` and
+`synthesize_from_checkpoint` (other model families)."""
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
 import numpy as np
 
 from ttscube_tpu_torch.models.cubegan import batch_to_torch
+from ttscube_tpu_torch.utils.ranks import is_writer
 from ttscube_tpu_torch.utils.wavio import write_wav
 
 
@@ -40,5 +43,29 @@ def cubegan_synthesize_dataset(model, dataset, collate, output_path: str, limit:
             frames = int(batch["n_frames"][0]) if "n_frames" in batch else \
                 int(batch["y_frame_mask"][0].sum())
         audio = audio[0, : frames * hop].float().cpu().numpy()
-        write_wav(os.path.join(output_path, f"{example['meta']['id']}.wav"),
-                  np.asarray(audio), model.config.sample_rate)
+        if is_writer():  # over a mesh every rank synthesizes (a collective), rank 0 writes
+            write_wav(os.path.join(output_path, f"{example['meta']['id']}.wav"),
+                      np.asarray(audio), model.config.sample_rate)
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return struct.pack(">I", len(data)) + kind + data + struct.pack(
+        ">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+
+def render_spectrogram(mgc: np.ndarray, output_file: str):
+    """(T, n_mels) → a grey 8-bit RGB PNG, T wide and n_mels high, low bands at the
+    bottom: the pixels of the JAX function's image, written with the standard library
+    (zlib, struct) in place of PIL."""
+    mgc = np.asarray(mgc, np.float32)
+    lo, hi = float(mgc.min()), float(mgc.max())
+    norm = (mgc - lo) / max(hi - lo, 1e-9)
+    gray = (norm.T[::-1] * 255).astype(np.uint8)  # (mels, T), flipped
+    rgb = np.repeat(gray[:, :, None], 3, axis=2)
+    rows = np.concatenate([np.zeros((rgb.shape[0], 1), np.uint8),  # filter type 0
+                           rgb.reshape(rgb.shape[0], -1)], axis=1)
+    header = struct.pack(">IIBBBBB", rgb.shape[1], rgb.shape[0], 8, 2, 0, 0, 0)
+    with open(output_file, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+                + _png_chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + _png_chunk(b"IEND", b""))

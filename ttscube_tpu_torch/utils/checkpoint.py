@@ -12,6 +12,9 @@ so a file moves to the other package in either direction: JAX's `load_params` an
 `load_train_state` read what this module writes, and this module reads what they
 write. A file is written beside its target and renamed into place, so a save that is
 cut off leaves the previous file whole.
+
+Over a mesh (parallel/mesh.py) every rank calls the savers, because gathering the
+sharded parameters and moments is a collective, and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -23,10 +26,13 @@ import torch
 from ttscube_tpu_torch.convert import (load_jax_params, load_jax_train_state, read_msgpack,
                                        state_dict_to_jax, train_state_to_jax)
 from ttscube_tpu_torch.utils import config_io
+from ttscube_tpu_torch.utils.ranks import is_writer
 from ttscube_tpu_torch.utils.serialization import msgpack_restore, msgpack_serialize
 
 
 def _write(path: str, tree) -> None:
+    if not is_writer():
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -68,7 +74,8 @@ def load_train_state(path: str, state):
 
 
 def save_config(base: str, config: dict) -> None:
-    config_io.dump(config, base + ".yaml")
+    if is_writer():
+        config_io.dump(config, base + ".yaml")
 
 
 def load_config(base: str) -> dict:

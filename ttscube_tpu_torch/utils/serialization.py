@@ -159,6 +159,15 @@ def _chunked(x):
     return x
 
 
+def sorted_maps(tree):
+    """The tree with every map's keys in sorted order: what flax's `msgpack_serialize`
+    writes, because it copies the tree through `jax.tree_util` first (flax's `to_bytes`
+    keeps the order it is given, as `msgpack_serialize` here does)."""
+    if isinstance(tree, dict):
+        return {k: sorted_maps(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def msgpack_serialize(tree) -> bytes:
     """The flax msgpack bytes of a tree of dicts, lists and numpy or Python leaves."""
     return _pack(_chunked(tree))
