@@ -72,12 +72,22 @@ Phases, each printing one line with its seconds as it ends:
               relative and the parameters after it in units of lr), each step's host
               ms beside the other's; synthesis of 4 items over the mesh
               against Cubegan.infer (fp32, TF32 off, 5e-5)
-  import_export  raw audio to a served voice with the port alone: make_demo_corpus (2
-              speakers x IMPORT_SENTENCES), import_blizzard_2023 on the card and on the
-              CPU (every .mgc within 1e-4, every other file equal), 2 train steps at v1
-              width on the imported folder, export_model, and one request through
-              TTSCube from the exported volumes on the card (B1 once); the import's
-              seconds per audio second by part, the export's seconds, the request's ms
+  phonemizer  the phonemizer family at its full widths: make_demo_corpus (2 speakers x
+              IMPORT_SENTENCES) and import_phonemizer_blizzard (speaker 0, a quarter for
+              dev); the trainer CLI (train_phonemizer) for the aligned model and for M2M:
+              every file written, --resume bit-equal and the next step from it equal to
+              the live run's (deterministic algorithms), one card step against the CPU's
+              (TF32 off), step ms, busy share, dev PACC/SACC; M2M's free-running decode of
+              the dev set against the CPU's, its ms and device launches per decode step;
+              word G2P trained on the sentences' lexicon, its transcription on the card
+              against the CPU's, words per second. None of the kernels runs here
+  import_export  raw audio to a served voice with the port alone: the phonemizer
+              phase's corpus, import_blizzard_2023 on the card and on the CPU (every .mgc
+              within 1e-4, every other file equal), 2 train steps at v1 width on the
+              imported folder, export_model with the phonemizer the phonemizer phase
+              trained, and one request through TTSCube from the exported volumes on the
+              card (B1 once); the import's seconds per audio second by part, the
+              export's seconds, the request's ms
   generator_resblock2  a plain Generator at v1's widths with ResBlock2 (HiFi-GAN v3's
               kernels and dilations), fp32 on the card against the CPU
   times       each kernel's median time beside its plain version's and its bound (and
@@ -157,6 +167,16 @@ CHUNK_BATCH, CHUNK_FRAMES, CHECK_BATCH = 256, 256, 4
 # import_export: the demo corpus of 2 speakers, cut from make_demo_corpus's default 300
 # sentences each to fit the run's time limit
 IMPORT_SENTENCES = 32
+# phonemizer: the phonemizer data of speaker 0's sentences, a quarter of them for dev (8);
+# the trainer CLI at its full widths and batch PHONEMIZER_BATCH for PHONEMIZER_STEPS;
+# PHONEMIZER_TIMED further steps timed; word G2P trained for G2P_EPOCHS on the lexicon
+# of those sentences
+PHONEMIZER_DEV_RATIO = 0.25
+PHONEMIZER_BATCH = 4
+PHONEMIZER_STEPS = {"aligned": 240, "m2m": 12}
+PHONEMIZER_TIMED = 6
+G2P_EPOCHS = 10
+TOL_LOGITS = 2e-5  # the phonemizers' and G2P's logits, card against CPU (the cond tolerance)
 # C7: the first request after TTSCube.warmup, at most this many times the same request's
 # steady-state median
 FIRST_REQUEST_BOUND = 1.5
@@ -929,31 +949,249 @@ def mesh_phase(enc, work: Path) -> dict:
                 plain_ms=statistics.median(runs["plain"]["ms"]), dryrun_s=dry_s)
 
 
-def import_export_phase(penc, work: Path) -> dict:
-    """From raw audio to a served voice with the port alone: a demo corpus
-    (`make_demo_corpus`, 2 speakers x IMPORT_SENTENCES), imported on the card by
+def same_simple_state(a, b) -> bool:
+    """Bit-equal parameters, step, and every AdamW moment and count of two SimpleStates."""
+    import torch
+
+    sb = b.model.state_dict()
+    if a.step != b.step or any(not torch.equal(v, sb[k]) for k, v in
+                               a.model.state_dict().items()):
+        return False
+    for p, q in zip(a.optimizer.param_groups[0]["params"], b.optimizer.param_groups[0]["params"]):
+        sa, sq = a.optimizer.state.get(p, {}), b.optimizer.state.get(q, {})
+        if sa.keys() != sq.keys() or any(not torch.equal(sa[k], sq[k]) for k in sa):
+            return False
+    return True
+
+
+def top2_margin(logits, upto=None) -> float:
+    """The smallest top-1/top-2 margin of (B, T, K) logits, over each row's first
+    upto[b] + 1 steps where `upto` is given: how near a free run's argmaxes came to a
+    tie."""
+    import torch
+
+    top = torch.topk(logits.detach().double().cpu(), 2, dim=-1).values
+    m = top[..., 0] - top[..., 1]
+    if upto is not None:
+        m = torch.where(torch.arange(m.shape[1])[None, :] <= torch.as_tensor(upto)[:, None],
+                        m, torch.full_like(m, float("inf")))
+    return float(m.min())
+
+
+def phonemizer_phase(work: Path) -> dict:
+    """The phonemizer family on the card at its full widths: the demo corpus (2 speakers
+    x IMPORT_SENTENCES, kept in `work/corpus` for import_export) and its phonemizer data
+    (speaker 0, a quarter for dev); the trainer CLI for the aligned and the M2M models
+    (PHONEMIZER_STEPS at batch PHONEMIZER_BATCH): every file written, `--resume`
+    restores the state bit-equal and the next step from it equals the live run's under
+    deterministic algorithms, one card step against the same step on the CPU (TF32 off:
+    loss TOL_LOSS relative, the parameters in units of lr), the step's host ms and busy
+    share, PACC/SACC on the dev set; for M2M the free-running validation decode of the
+    dev set, its ms, its device launches per decode step, and the card's decode against
+    the CPU's (TOL_LOGITS, the margin printed); then word G2P trained on the lexicon of
+    those sentences, its transcription on the card against the CPU's and its words per
+    second. Returns the aligned model's output base (for import_export), the launches
+    of the phase's paths (none of the kernels) and the numbers to print."""
+    import copy
+    import os
+
+    import numpy as np
+    import torch
+
+    from ttscube_tpu_torch.data.collate import PhonemizerCollate
+    from ttscube_tpu_torch.data.datasets import PhonemizerDataset
+    from ttscube_tpu_torch.data.encodings import PhonemizerEncodings
+    from ttscube_tpu_torch.models.cubegan import batch_to_torch
+    from ttscube_tpu_torch.models.g2p import G2P, greedy_decode
+    from ttscube_tpu_torch.models.phonemizer import PhonemizerM2M
+    from ttscube_tpu_torch.scripts import (g2p as g2p_cli, import_phonemizer_blizzard,
+                                           make_demo_corpus, train_phonemizer)
+    from ttscube_tpu_torch.train import states as ts
+
+    dev = torch.device("cuda")  # the CLIs' default device
+    corpus = work / "corpus"
+    make_demo_corpus.main(make_demo_corpus.parser().parse_args(
+        ["--output", str(corpus), "--sentences", str(IMPORT_SENTENCES), "--speakers", "2"]))
+    data = str(work / "phonemizer_data")
+    import_phonemizer_blizzard.main(["--input-file", str(corpus / "align_spk0.txt"),
+                                     "--dev-ratio", str(PHONEMIZER_DEV_RATIO),
+                                     "--output-base", data])
+    trainset, devset = PhonemizerDataset(data + ".train"), PhonemizerDataset(data + ".dev")
+    check(len(devset) >= 8, f"phonemizer: {len(devset)} dev sentences")
+    out = {"counts": {}}
+    torch.cuda.synchronize()
+    zero_counts()
+    for kind in ("aligned", "m2m"):
+        steps = PHONEMIZER_STEPS[kind]
+        base = str(work / "model" / ("phonemizer" if kind == "aligned" else "phonemizer_m2m"))
+        argv = ["--train-file", data + ".train", "--dev-file", data + ".dev", "--output-base",
+                base, "--model-type", kind, "--batch-size", str(PHONEMIZER_BATCH)]
+        t1 = time.perf_counter()
+        live = train_phonemizer.main(argv + ["--max-steps", str(steps)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t1
+        files = [ext for ext in ("encodings", "best", "last", "opt.last", "pacc.best",
+                                 "sacc.best") if os.path.getsize(f"{base}.{ext}") > 0]
+        check(live.step == steps and len(files) == 6 and next(live.model.parameters()).is_cuda
+              and isinstance(live.model, PhonemizerM2M) == (kind == "m2m"),
+              f"phonemizer {kind}: {live.step} steps, files {files}")
+        collate = PhonemizerCollate(PhonemizerEncodings(base + ".encodings"))
+        pacc, sacc = train_phonemizer.dev_scores(live, devset, collate, PHONEMIZER_BATCH, dev)
+        resumed = train_phonemizer.main(argv + ["--resume", "--max-epochs", "0"])
+        check(same_simple_state(live, resumed), f"phonemizer {kind}: --resume did not restore "
+              "the step, parameters and moments bit-equal")
+        nb_host = collate([trainset[i] for i in range(PHONEMIZER_BATCH)])
+        nb = batch_to_torch(nb_host, dev)
+        with deterministic():
+            _, m_live = ts.phonemizer_train_step(live, nb)
+            _, m_back = ts.phonemizer_train_step(resumed, nb)
+        equal = torch.equal(m_live["loss"], m_back["loss"]) and same_simple_state(live, resumed)
+        # one step on the card against the same step on the CPU, from the same weights
+        # and a fresh optimizer, TF32 off
+        w = {k: v.detach().cpu().clone() for k, v in live.model.state_dict().items()}
+        card_m = copy.deepcopy(live.model)
+        card_m.load_state_dict(w)
+        cpu_m = copy.deepcopy(live.model).cpu()
+        cpu_m.load_state_dict(w)
+        sc, sp = ts.create_phonemizer_state(card_m), ts.create_phonemizer_state(cpu_m)
+        with no_tf32():
+            _, mc = ts.phonemizer_train_step(sc, nb)
+        _, mp = ts.phonemizer_train_step(sp, batch_to_torch(nb_host, "cpu"))
+        rel = abs(mc["loss"].item() - mp["loss"].item()) / abs(mp["loss"].item())
+        lr = sc.optimizer.param_groups[0]["lr"]
+        worst, over, far, total = param_distance(
+            {n: p.detach().cpu() for n, p in card_m.named_parameters()},
+            {n: p.detach().cpu() for n, p in cpu_m.named_parameters()}, lr)
+        del sc, sp, card_m, cpu_m
+        # the step's host ms (after the first) and one profiled step's busy share
+        step_ms = []
+        for _ in range(PHONEMIZER_TIMED):
+            t1 = time.perf_counter()
+            ts.phonemizer_train_step(live, nb)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        prof = device_profile(lambda: ts.phonemizer_train_step(live, nb))
+        run = out[kind] = dict(step_ms=statistics.median(step_ms[1:]), busy=prof[1] / prof[0],
+                               pacc=pacc, sacc=sacc, cli_s=cli_s)
+        print(f"  phonemizer {kind}: trainer CLI {cli_s:.1f} s for {steps} steps (B="
+              f"{PHONEMIZER_BATCH}, {len(trainset)} train / {len(devset)} dev sentences); "
+              f"dev PACC={pacc:.4f} SACC={sacc:.4f}; --resume bit-equal, next step from both "
+              f"bit-equal: {equal}; card vs CPU step: loss rel {rel:.3e} tol={TOL_LOSS:.0e}, "
+              f"params max {worst / lr:.4f} lr, {over} beyond 2 lr + rounding, {far} of "
+              f"{total} beyond 0.01 lr; step ms (host clock, after the first) "
+              f"{', '.join(f'{v:.1f}' for v in step_ms)}, median {run['step_ms']:.1f}",
+              flush=True)
+        print_profile(f"phonemizer {kind} train step B={PHONEMIZER_BATCH}", *prof)
+        check(equal, f"phonemizer {kind}: the resumed state's next step differs from the "
+                     "live one's")
+        check(rel <= TOL_LOSS and over == 0 and far <= 1e-3 * total,
+              f"phonemizer {kind}: the card's step differs from the CPU's")
+        if kind == "aligned":
+            out["pbase"] = base
+            continue
+        # M2M: the free-running validation decode of the dev set, card against CPU
+        X = batch_to_torch(collate([devset[i] for i in range(len(devset))]), dev)
+        T = X["y_phon"].shape[1]
+        free = {k: v for k, v in X.items() if k not in ("y_phon", "y_new_word")}
+        model = live.model.eval()
+        decode = lambda: model(free, max_steps=T)
+        with torch.no_grad():
+            dec_ms = []
+            for _ in range(4):
+                t1 = time.perf_counter()
+                decode()
+                torch.cuda.synchronize()
+                dec_ms.append((time.perf_counter() - t1) * 1e3)
+            dprof = device_profile(decode)
+            with no_tf32():
+                got = decode()
+            cpu_model = copy.deepcopy(model).cpu()
+            want = cpu_model({k: v.cpu() for k, v in free.items()}, max_steps=T)
+        errs = [distance(a, b)[0] for a, b in zip(got[:2], want[:2])]
+        margin = min(top2_margin(want[0]), top2_margin(want[1]))
+        same_fin = torch.equal(got[2].cpu(), want[2])
+        run.update(decode_ms=statistics.median(dec_ms[1:]), launches_per_step=dprof[3] / T,
+                   decode_busy=dprof[1] / dprof[0])
+        print(f"  phonemizer m2m free-running decode of the dev set (B={len(devset)}, T={T}): "
+              f"ms {', '.join(f'{v:.1f}' for v in dec_ms)} (median after the first "
+              f"{run['decode_ms']:.1f}); {dprof[3]} device ops = {run['launches_per_step']:.1f} "
+              f"per decode step; card vs CPU (TF32 off): phon logits max_abs_err={errs[0]:.3e}, "
+              f"next-word logits {errs[1]:.3e} tol={TOL_LOGITS:.0e}, finished equal: "
+              f"{same_fin}, smallest top-1/top-2 margin {margin:.3e}", flush=True)
+        print_profile(f"phonemizer m2m free-running decode B={len(devset)} T={T}", *dprof)
+        check(max(errs) <= TOL_LOGITS and same_fin, "phonemizer m2m: the card's free-running "
+              f"decode differs from the CPU's (margin {margin:.3e})")
+        del live, resumed, model, cpu_model
+
+    # word G2P on the lexicon of the imported sentences
+    lexicon = {}
+    for e in [trainset[i] for i in range(len(trainset))] + [devset[i] for i in range(len(devset))]:
+        for w, word in enumerate(e["words"]):
+            if word.isalpha():
+                lexicon.setdefault(word.lower(), [p for p, k in zip(e["hybrid"], e["phon2word"])
+                                                  if k == w])
+    missing = sorted(set(make_demo_corpus.WORDS) - set(lexicon))
+    lex = work / "g2p" / "lexicon.tsv"
+    lex.parent.mkdir()
+    lex.write_text("".join(f"{w}\t{' '.join(p)}\n" for w, p in sorted(lexicon.items())))
+    gbase = str(work / "g2p" / "g2p")
+    t1 = time.perf_counter()
+    g2p = g2p_cli.main(["--train-file", str(lex), "--dev-file", str(lex), "--store", gbase,
+                        "--max-epochs", str(G2P_EPOCHS), "--patience", str(G2P_EPOCHS),
+                        "--batch-size", "8"])
+    torch.cuda.synchronize()
+    g2p_train_s = time.perf_counter() - t1
+    words = sorted(lexicon)
+    g2p.transcribe(words)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    card_tr = g2p.transcribe(words)
+    words_per_s = len(words) / (time.perf_counter() - t1)
+    cpu_g2p = G2P("cpu")
+    cpu_g2p.load(gbase, load_last=True)
+    cpu_tr = cpu_g2p.transcribe(words)
+    acc = sum(card_tr[i] == lexicon[w] for i, w in enumerate(words)) / len(words)
+    x = torch.from_numpy(g2p.encode_words(words))
+    with torch.no_grad():
+        with no_tf32():
+            gl, gd = g2p.model.eval()(x.to(dev), max_steps=G2P.MAX_PHONES)
+        cl, cd = cpu_g2p.model.eval()(x, max_steps=G2P.MAX_PHONES)
+    eos = [int(np.argmax(d)) if d.any() else G2P.MAX_PHONES - 1 for d in cd.numpy()]
+    read = torch.arange(G2P.MAX_PHONES)[None, :, None] <= torch.tensor(eos)[:, None, None]
+    g_err = distance(gl.cpu() * read, cl.detach() * read)[0]
+    g_margin = top2_margin(cl, eos)
+    same_tok = torch.equal(greedy_decode(gl, gd).cpu(), greedy_decode(cl, cd))
+    out["g2p"] = dict(words_per_s=words_per_s, acc=acc, train_s=g2p_train_s)
+    print(f"  g2p: lexicon of {len(words)} words (make_demo_corpus's WORDS missing: {missing}), "
+          f"trained {G2P_EPOCHS} epochs on the card in {g2p_train_s:.1f} s; transcription on "
+          f"the card {words_per_s:.0f} words/s, word accuracy {acc:.3f}; card vs CPU: tokens "
+          f"equal {same_tok and card_tr == cpu_tr}, logits to each EOS max_abs_err={g_err:.3e} "
+          f"tol={TOL_LOGITS:.0e}, smallest top-1/top-2 margin there {g_margin:.3e}", flush=True)
+    check(same_tok and card_tr == cpu_tr and g_err <= TOL_LOGITS and g2p.device.type == "cuda",
+          f"g2p: the card's transcription differs from the CPU's (margin {g_margin:.3e})")
+    out["counts"] = read_counts()
+    check(all(v == 0 for v in out["counts"].values()),
+          f"phonemizer: kernels launched {out['counts']}")
+    return out
+
+
+def import_export_phase(work: Path, pbase: str) -> dict:
+    """From raw audio to a served voice with the port alone: the demo corpus that the
+    phonemizer phase wrote to `work/corpus`, imported on the card by
     `import_blizzard_2023` and again on the CPU (every .mgc within 1e-4, every other file
-    equal), 2 train steps at v1 width on the imported folder, `export_model`, and one
-    request through TTSCube(model_path, phonemizer_path) on the card from the exported
-    volumes. Returns the launches of that request and the numbers to print."""
+    equal), 2 train steps at v1 width on the imported folder, `export_model` with the
+    aligned phonemizer that the phonemizer phase trained (`pbase`, its `.sacc.best`),
+    and one request through TTSCube(model_path, phonemizer_path) on the card from the
+    exported volumes. Returns the launches of that request and the numbers to print."""
     import tarfile
 
     import numpy as np
     import torch
 
-    from ttscube_tpu_torch.api import TTSCube, phonemizer_config
-    from ttscube_tpu_torch.convert import init_random
-    from ttscube_tpu_torch.models.phonemizer import Phonemizer
-    from ttscube_tpu_torch.scripts import (export_model, import_blizzard_2023,
-                                           import_phonemizer_blizzard, make_demo_corpus,
-                                           train_cubegan)
-    from ttscube_tpu_torch.utils import checkpoint as ckpt
+    from ttscube_tpu_torch.api import TTSCube
+    from ttscube_tpu_torch.scripts import export_model, import_blizzard_2023, train_cubegan
 
     corpus = work / "corpus"
-    t1 = time.perf_counter()
-    make_demo_corpus.main(make_demo_corpus.parser().parse_args(
-        ["--output", str(corpus), "--sentences", str(IMPORT_SENTENCES), "--speakers", "2"]))
-    corpus_s = time.perf_counter() - t1
     times = {}
     for where, device in (("card", []), ("cpu", ["--device", "cpu"])):
         t1 = time.perf_counter()
@@ -965,8 +1203,6 @@ def import_export_phase(penc, work: Path) -> dict:
                  "--dev-output", str(work / where / "dev"), *device])
             times[where] = {n: times.get(where, {}).get(n, 0.0) + v for n, v in t.items()}
         times[where]["wall_s"] = time.perf_counter() - t1
-    import_phonemizer_blizzard.main(["--input-file", str(corpus / "align_spk0.txt"),
-                                     "--output-base", str(work / "phonemizer_data")])
     names = sorted(p.relative_to(work / "card") for p in (work / "card").rglob("*")
                    if p.is_file())
     check(names == sorted(p.relative_to(work / "cpu") for p in (work / "cpu").rglob("*")
@@ -984,7 +1220,7 @@ def import_export_phase(penc, work: Path) -> dict:
     card = times["card"]
     per = {k: card[k] / card["audio_s"] for k in ("mel_s", "pitch_s", "png_s", "total_s")}
     print(f"  import_blizzard_2023 of {2 * IMPORT_SENTENCES} utterances ({card['audio_s']:.1f} "
-          f"s of audio; the corpus written in {corpus_s:.1f} s): on the card {card['wall_s']:.2f} "
+          f"s of audio): on the card {card['wall_s']:.2f} "
           f"s, s per audio s: mel {per['mel_s']:.5f}, pitch {per['pitch_s']:.5f}, png "
           f"{per['png_s']:.5f}, all {per['total_s']:.5f}; on the CPU {times['cpu']['wall_s']:.2f}"
           f" s (mel {times['cpu']['mel_s'] / card['audio_s']:.5f}); card vs CPU: .mgc "
@@ -1000,10 +1236,6 @@ def import_export_phase(penc, work: Path) -> dict:
                                 "--max-epochs", "1", "--epoch-generation", "0"])
     train_s = time.perf_counter() - t1
     check(steps == 2, f"import_export: {steps} train steps")
-    pbase = str(work / "model" / "phonemizer")
-    ckpt.save_params(pbase + ".sacc.best",
-                     init_random(Phonemizer(phonemizer_config(penc)), SEED + 1))
-    penc.save(pbase + ".encodings")
     (work / "dist").mkdir()
     t1 = time.perf_counter()
     n_vol = export_model.main(["--input-model", base, "--input-phonemizer", pbase,
@@ -1025,7 +1257,8 @@ def import_export_phase(penc, work: Path) -> dict:
     request_ms = (time.perf_counter() - t1) * 1e3
     counts = read_counts()
     print(f"  trained 2 steps on the imported folder in {train_s:.1f} s; export_model "
-          f"{export_s:.2f} s ({n_vol} volume(s)); TTSCube from the exported files on "
+          f"{export_s:.2f} s ({n_vol} volume(s); the phonemizer: {pbase}.sacc.best, trained "
+          f"in the phonemizer phase); TTSCube from the exported files on "
           f"{cube.device}: request of {len(REQUESTS[0])} characters {request_ms:.1f} ms, "
           f"{len(pcm)} samples, launches {counts}", flush=True)
     check(pcm.dtype == np.int16 and len(pcm) > 0 and counts["fused_tail_stage"] == 1,
@@ -1907,10 +2140,20 @@ def main() -> int:
         f"{mesh_run['plain_ms']:.1f}", launches_b1=mesh_run["counts"]["fused_tail_stage"],
         launches_b2=mesh_run["counts"]["fused_tail_stage_grad"])
 
-    # -- import_export ------------------------------------------------------------------
+    # -- phonemizer ---------------------------------------------------------------------
     t0 = time.perf_counter()
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_import_"))
-    ie_run = import_export_phase(penc, work)
+    ph_run = phonemizer_phase(work)
+    say("phonemizer", t0, aligned_step_ms=f"{ph_run['aligned']['step_ms']:.1f}",
+        m2m_step_ms=f"{ph_run['m2m']['step_ms']:.1f}",
+        m2m_busy_share=f"{ph_run['m2m']['busy']:.3f}",
+        m2m_decode_ms=f"{ph_run['m2m']['decode_ms']:.1f}",
+        aligned_pacc=f"{ph_run['aligned']['pacc']:.4f}",
+        g2p_words_per_s=f"{ph_run['g2p']['words_per_s']:.0f}")
+
+    # -- import_export ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    ie_run = import_export_phase(work, ph_run["pbase"])
     shutil.rmtree(work)
     say("import_export", t0, s_per_audio_s=f"{ie_run['per_audio_s']['total_s']:.5f}",
         export_s=f"{ie_run['export_s']:.2f}", request_ms=f"{ie_run['request_ms']:.1f}")
@@ -2137,11 +2380,11 @@ def main() -> int:
 
     # launches on the main paths (warmup, serve, serve_wide, serve_batch whole and
     # chunked, train, train_bf16, trainer in fp32 and in bf16, the mesh's trainer and
-    # synthesis, the exported voice's request), each counted from zero just before its
-    # path ran
+    # synthesis, the phonemizer family's training and decoding, the exported voice's
+    # request), each counted from zero just before its path ran
     paths = (warm_counts, serve_counts, wide_counts, batch_runs["whole"]["counts"],
              batch_runs["chunked"]["counts"], train_counts, bf16_counts, trainer_counts,
-             trainer16_counts, mesh_run["counts"], ie_run["counts"])
+             trainer16_counts, mesh_run["counts"], ph_run["counts"], ie_run["counts"])
     main_counts = {n: sum(c[n] for c in paths) for n in serve_counts}
     print(f"  main-path launches: {main_counts}; launches in the kernel phases: "
           f"{phase_launches}", flush=True)

@@ -370,11 +370,14 @@ def test_import_script_matches_jax(script, tmp_path):
 
 
 def test_import_corpus_refuses_g2p(tmp_path):
+    """`--g2p` at a base without a G2P model is refused before anything is imported
+    (word G2P itself: tests/test_torch_g2p.py)."""
     from ttscube_tpu_torch.scripts import import_corpus
 
-    with pytest.raises(NotImplementedError, match="A11.3"):
-        import_corpus.main(["--train-folder", str(tmp_path), "--g2p", "model", "--device",
-                            "cpu"])
+    with pytest.raises(FileNotFoundError, match="model.encodings"):
+        import_corpus.main(["--train-folder", str(tmp_path), "--g2p", str(tmp_path / "model"),
+                            "--train-output", str(tmp_path / "out"), "--device", "cpu"])
+    assert not (tmp_path / "out").exists()
 
 
 def test_import_audio_reports_its_times(tmp_path):

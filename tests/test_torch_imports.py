@@ -1,5 +1,5 @@
 """The port runs on a machine that has PyTorch and numpy but no JAX, flax, optax, yaml,
-msgpack, PIL or tqdm. Every module of `ttscube_tpu_torch/` (its mesh in `parallel/`,
+msgpack, transformers, tokenizers, PIL or tqdm. Every module of `ttscube_tpu_torch/` (its mesh in `parallel/`,
 `entry.py` and the scripts included), `chip_smoke.py`, `chip_variants.py` and
 `chip_probes.py` is parsed here: none may import JAX, flax, optax, yaml, msgpack, PIL,
 tqdm or the JAX package `ttscube_tpu` anywhere (the port reads and writes its checkpoint
@@ -7,6 +7,8 @@ files with its own `utils/serialization.py` and `utils/config_io.py`, and its PN
 zlib)."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -79,3 +81,28 @@ def test_the_guard_catches_what_it_guards():
     assert ("yaml", True) in found and ("ttscube_tpu", True) in found
     assert ("msgpack", False) in found and ("jax", False) in found
     assert ("PIL", False) in found and ("tqdm", False) in found
+
+
+PHONEMIZER_MODULES = ("models.blocks", "models.g2p", "models.phonemizer", "train.states",
+                      "scripts.train_phonemizer", "scripts.g2p", "scripts.import_corpus")
+
+
+def test_the_phonemizer_family_is_checked():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"ttscube_tpu_torch/{m.replace('.', '/')}.py" for m in PHONEMIZER_MODULES} <= names
+
+
+@pytest.mark.parametrize("module", PHONEMIZER_MODULES)
+def test_imports_with_the_missing_packages_blocked(module):
+    """Each module of the phonemizer family imports in a fresh interpreter where jax,
+    flax, optax, yaml, msgpack, transformers, tokenizers and ttscube_tpu cannot be
+    imported (None in sys.modules makes an import raise)."""
+    blocked = ["jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "transformers",
+               "tokenizers", "ttscube_tpu"]
+    code = ("import sys\n" + "".join(f"sys.modules[{b!r}] = None\n" for b in blocked)
+            + f"import ttscube_tpu_torch.{module}\n"
+            + "assert not any(m.split('.')[0] in %r for m in sys.modules if sys.modules[m])\n"
+            % (blocked,))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]

@@ -27,16 +27,15 @@ from ttscube_tpu_torch.models import cubegan as tcg
 from ttscube_tpu_torch.models.languasito import languasito_losses
 from ttscube_tpu_torch.parallel import mesh as pm
 from tests import torch_mesh_ranks as ranks
-from tests.torch_parity import (TAIL32_HIFI, TINY_HIFI, TRAIN_DISC, TRAIN_LANG,  # noqa: F401
-                                exact_cpu_convs, jax_crop_starts, one_cpu_thread,
+from tests.torch_parity import (GRAD_TOL, SHARE, SHARE_LR, TAIL32_HIFI,  # noqa: F401
+                                TINY_HIFI, TRAIN_DISC, TRAIN_LANG, exact_cpu_convs,
+                                grad_error, jax_crop_starts, one_cpu_thread, param_error,
                                 toy_train_batch, train_pair)
 
 pytestmark = pytest.mark.usefixtures("exact_cpu_convs", "one_cpu_thread")
 
 TIMEOUT = 240  # seconds for one spawn of ranks
 STEPS = 2  # mesh steps against single-process steps
-GRAD_TOL = 5e-6  # reduced grads against the single process's, over the module's largest
-SHARE, SHARE_LR = 1e-3, 0.01  # at most this share of parameters beyond SHARE_LR · lr
 
 
 def _numpy(tree):
@@ -85,33 +84,6 @@ def _single(tm, batch: dict, starts, steps: int = 1) -> tuple:
                      if p.grad is not None}
             params = {n: p.detach().clone() for n, p in model.named_parameters()}
     return metrics, grads, params
-
-
-def grad_error(got: dict, want: dict) -> float:
-    """The largest grad difference in any module (a parameter name's first two parts:
-    `lang.tower_g`, `gen.res_3_0`, `msd.s1`), over that module's largest grad."""
-    assert got.keys() == want.keys()
-    diff, scale = {}, {}
-    for n, g in want.items():
-        m = ".".join(n.split(".")[:2])
-        diff[m] = max(diff.get(m, 0.0), float((torch.as_tensor(got[n]) - g).abs().max()))
-        scale[m] = max(scale.get(m, 0.0), float(g.abs().max()))
-    return max(diff[m] / max(scale[m], 1e-30) for m in diff)
-
-
-def param_error(got: dict, want: dict, lr: float) -> tuple:
-    """Parameters after a first step against the reference's: (largest difference in
-    units of lr, the share of elements beyond SHARE_LR · lr, whether every element is
-    within 2 lr plus the rounding of the two updates)."""
-    worst, far, total, within = 0.0, 0, 0, True
-    for n, w in want.items():
-        d = (torch.as_tensor(got[n]) - w).abs()
-        within &= bool((d <= 2 * lr + 2 * torch.from_numpy(
-            np.spacing(w.abs().numpy().astype(np.float32)))).all())
-        worst = max(worst, float(d.max()) / lr)
-        far += int((d > SHARE_LR * lr).sum())
-        total += d.numel()
-    return worst, far / total, within
 
 
 @pytest.mark.parametrize("hifi,shape,against_jax", [

@@ -87,10 +87,47 @@ def assert_close(piece: str, got, want, atol: float) -> float:
     return diff
 
 
+# A step's grads and parameters against a reference step's (the mesh, the phonemizer and
+# G2P trainers): each grad within GRAD_TOL of the largest grad of the module that holds it;
+# after a first Adam step at most SHARE of the elements beyond SHARE_LR · lr, and none
+# beyond 2 lr plus rounding (the first step moves each by about lr·sign(g), and a grad
+# near zero may sum to the other sign in another order).
+GRAD_TOL = 5e-6
+SHARE, SHARE_LR = 1e-3, 0.01
+
+
+def grad_error(got: dict, want: dict) -> float:
+    """The largest grad difference in any module (a parameter name's first two parts:
+    `lang.tower_g`, `gen.res_3_0`, `msd.s1`), over that module's largest grad."""
+    assert got.keys() == want.keys()
+    diff, scale = {}, {}
+    for n, g in want.items():
+        m = ".".join(n.split(".")[:2])
+        diff[m] = max(diff.get(m, 0.0), float((torch.as_tensor(got[n]) - g).abs().max()))
+        scale[m] = max(scale.get(m, 0.0), float(g.abs().max()))
+    return max(diff[m] / max(scale[m], 1e-30) for m in diff)
+
+
+def param_error(got: dict, want: dict, lr: float) -> tuple:
+    """Parameters after a first step against the reference's: (largest difference in
+    units of lr, the share of elements beyond SHARE_LR · lr, whether every element is
+    within 2 lr plus the rounding of the two updates)."""
+    worst, far, total, within = 0.0, 0, 0, True
+    for n, w in want.items():
+        d = (torch.as_tensor(got[n]) - w).abs()
+        within &= bool((d <= 2 * lr + 2 * torch.from_numpy(
+            np.spacing(w.abs().numpy().astype(np.float32)))).all())
+        worst = max(worst, float(d.max()) / lr)
+        far += int((d > SHARE_LR * lr).sum())
+        total += d.numel()
+    return worst, far / total, within
+
+
 def random_params(module, *example, seed: int):
     """Seeded random weights for a flax module, shaped by `jax.eval_shape` of its init
     (no eager init: that compiles every scan). Weight-norm g = 1 (unit-norm rows) and
-    small random biases, so that signals keep their scale through the generator;
+    small random biases (an LSTM cell's `b` among them), so that signals keep their
+    scale through the generator;
     other kernels are scaled by 1/sqrt(fan-in)."""
     shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *example)["params"]
     rng = np.random.default_rng(seed)
@@ -99,7 +136,7 @@ def random_params(module, *example, seed: int):
         name = jax.tree_util.keystr(path)
         if name.endswith("['g']"):
             return np.ones(x.shape, np.float32)
-        if name.endswith("['bias']") or "['b_l" in name:
+        if name.endswith("['bias']") or name.endswith("['b']") or "['b_l" in name:
             return (0.05 * rng.standard_normal(x.shape)).astype(np.float32)
         scale = 1.0 if name.endswith("['embedding']") else 1.0 / np.sqrt(
             max(int(np.prod(x.shape[:-1])), 1))

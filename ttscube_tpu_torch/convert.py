@@ -9,15 +9,17 @@ pairs each leaf module with its subtree and applies the layout rules:
   * SNConv1d u: the JAX "spectral" collection ↔ the module's buffer `u`
   * WNConvTranspose1d v: (k, out, in) ↔ (in, out, k); its g is per input channel
   * Dense kernel: (in, out) ↔ Linear weight (out, in)
-  * LSTM: wi/wh (D, 4H) ↔ weight_ih/weight_hh (4H, D); the single bias b goes to
-    bias_ih with bias_hh = 0, and comes back as bias_ih + bias_hh
-  * g, bias, embeddings: unchanged
+  * LSTM, LSTMCell: wi/wh (D, 4H) ↔ weight_ih/weight_hh (4H, D); the single bias b
+    goes to bias_ih with bias_hh = 0, and comes back as bias_ih + bias_hh
+  * g, bias, embeddings, and a parameter a non-leaf module holds itself (the
+    attention's v): unchanged
 
 `read_msgpack` reads the JAX package's `.model` / `.last` files (flax msgpack) with the
 port's own reader (`utils/serialization.py`), never flax or msgpack.
 `train_state_to_jax` and `load_jax_train_state` move a whole training state (weights,
 optimizer moments and counts, spectral u, step) between the port and the JAX
-package's `TrainState` tree.
+package's `TrainState` tree; `simple_state_to_jax` and `load_jax_simple_state` do the
+same for the JAX `SimpleState` of the phonemizer trainer.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from ttscube_tpu_torch.models.languasito import MaskedEmbed
 from ttscube_tpu_torch.ops.conv import (Conv1d, SNConv1d, WNConv1d, WNConv2d,
                                         WNConvTranspose1d)
 from ttscube_tpu_torch.ops.linear import Dense, Embed
-from ttscube_tpu_torch.ops.rnn import LSTM
+from ttscube_tpu_torch.ops.rnn import LSTM, LSTMCell
 from ttscube_tpu_torch.utils.serialization import msgpack_restore
 
 _T3 = (2, 1, 0)  # (k, a, b) ↔ (b, a, k)
@@ -62,6 +64,9 @@ def leaf_layout(mod: nn.Module) -> dict:
                 out[f"weight_hh_l{layer}{tsfx}"] = (f"wh_l{layer}{jsfx}", (1, 0))
                 out[f"bias_ih_l{layer}{tsfx}"] = (f"b_l{layer}{jsfx}", None)
         return out
+    elif isinstance(mod, LSTMCell):
+        return {"weight_ih": ("wi", (1, 0)), "weight_hh": ("wh", (1, 0)),
+                "bias_ih": ("b", None)}
     else:
         raise TypeError(f"no JAX layout rule for {type(mod).__name__}")
     if getattr(mod, "bias", None) is not None:
@@ -73,7 +78,7 @@ def _leaf_to_torch(mod: nn.Module, p: dict) -> dict:
     out = {name: torch.from_numpy(np.array(np.transpose(p[jname], axes) if axes else
                                            p[jname], dtype=np.float32))
            for name, (jname, axes) in leaf_layout(mod).items()}
-    if isinstance(mod, LSTM):
+    if isinstance(mod, (LSTM, LSTMCell)):
         for name in list(out):
             if name.startswith("bias_ih"):
                 out[name.replace("bias_ih", "bias_hh")] = torch.zeros(4 * mod.hidden_size)
@@ -92,14 +97,14 @@ def _leaf_to_jax(mod: nn.Module, sd: dict) -> dict:
     out = {}
     for name, (jname, axes) in leaf_layout(mod).items():
         a = host(sd[name])
-        if isinstance(mod, LSTM) and name.startswith("bias_ih"):
+        if isinstance(mod, (LSTM, LSTMCell)) and name.startswith("bias_ih"):
             a = a + host(sd[name.replace("bias_ih", "bias_hh")])
         out[jname] = np.ascontiguousarray(np.transpose(a, np.argsort(axes))) if axes else a
     return out
 
 
 _LEAVES = (Conv1d, SNConv1d, WNConv1d, WNConv2d, WNConvTranspose1d, Dense, Embed,
-           MaskedEmbed, LSTM)
+           MaskedEmbed, LSTM, LSTMCell)
 
 
 def jax_to_state_dict(module: nn.Module, tree: dict, spectral: dict | None = None) -> dict:
@@ -116,6 +121,8 @@ def jax_to_state_dict(module: nn.Module, tree: dict, spectral: dict | None = Non
                     torch.from_numpy(np.array(spec["u"], dtype=np.float32))
                 out[prefix + "u"] = u
             return
+        for name, _ in mod.named_parameters(recurse=False):
+            out[prefix + name] = torch.from_numpy(np.array(sub[name], dtype=np.float32))
         for name, child in mod.named_children():
             walk(child, sub[name], None if spec is None else spec.get(name),
                  prefix + name + ".")
@@ -133,8 +140,9 @@ def state_dict_to_jax(module: nn.Module, state_dict: dict | None = None) -> dict
             local = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)
                      and "." not in k[len(prefix):]}
             return _leaf_to_jax(mod, local)
-        return {name: walk(child, prefix + name + ".")
-                for name, child in mod.named_children()}
+        own = {name: host(sd[prefix + name]) for name, _ in mod.named_parameters(recurse=False)}
+        return dict(own, **{name: walk(child, prefix + name + ".")
+                            for name, child in mod.named_children()})
 
     return walk(module, "")
 
@@ -250,12 +258,10 @@ def _optimizer_of(state) -> dict:
             for group in opt.param_groups for p in group["params"]}
 
 
-def train_state_to_jax(state) -> dict:
-    """The JAX package's TrainState tree {params, opt_state, spectral, step} of a port
-    TrainState (models/cubegan.py), as numpy arrays."""
-    model = state.model
-    step = np.asarray(state.step, np.int32)
-    owner = _optimizer_of(state)
+def _moment_trees(model: nn.Module, owner: dict):
+    """The Adam moments of `model`'s parameters as JAX trees {"exp_avg": ...,
+    "exp_avg_sq": ...} (zeros where a parameter has none), and each optimizer's count
+    by its key; `owner` maps id(parameter) → (key, optimizer)."""
     counts, moments = {}, {}
     for key in ("exp_avg", "exp_avg_sq"):
         sd = {}
@@ -266,6 +272,42 @@ def train_state_to_jax(state) -> dict:
             if part_opt and "step" in st:
                 counts[part_opt[0]] = int(st["step"])
         moments[key] = state_dict_to_jax(model, sd)
+    return counts, moments
+
+
+def _adam_updates(model: nn.Module, opt, adam: dict, params: dict) -> list:
+    """(optimizer, parameter, its new torch state) for each parameter of `opt`, from an
+    optax ScaleByAdamState tree `adam` {count, mu, nu} (moments outside the partition
+    may be {}); an empty state where the count is 0."""
+    count = int(adam["count"])
+    mu, nu = (jax_to_state_dict(model, _filled(adam[k], params)) for k in ("mu", "nu"))
+    named = {id(p): n for n, p in model.named_parameters()}
+    return [(opt, p, {} if count == 0 else {
+        "step": torch.tensor(float(count)),
+        "exp_avg": like(mu[named[id(p)]], p), "exp_avg_sq": like(nu[named[id(p)]], p)})
+        for group in opt.param_groups for p in group["params"]]
+
+
+def _load_checked(model: nn.Module, sd: dict, updates: list, where: str) -> None:
+    """Load the state dict `sd` (which must fit `model` exactly) and the optimizer
+    states `updates`; nothing is changed if `sd` does not fit."""
+    own = model.state_dict()
+    wrong = [k for k, v in sd.items() if k not in own or own[k].shape != v.shape]
+    if wrong or len(sd) != len(own):
+        raise ValueError(f"'{where}' does not fit this model: {wrong[:3] or 'missing weights'}")
+    load_state_dict(model, sd)
+    for opt, p, st in updates:
+        opt.state.pop(p, None)
+        if st:
+            opt.state[p] = st
+
+
+def train_state_to_jax(state) -> dict:
+    """The JAX package's TrainState tree {params, opt_state, spectral, step} of a port
+    TrainState (models/cubegan.py), as numpy arrays."""
+    model = state.model
+    step = np.asarray(state.step, np.int32)
+    counts, moments = _moment_trees(model, _optimizer_of(state))
     opt_state = {}
     for tx, (parts, active) in _TXS.items():
         inner = {}
@@ -319,30 +361,53 @@ def _load_train_state(state, tree: dict, where: str):
     for part, opt in state.optimizers.items():
         tx = "d" if part == "d" else "gtb"
         chain = tree["opt_state"][tx]["inner_states"][part]["inner_state"]
-        count = int(chain["0"]["count"])
         if part != "b" and int(chain["2"]["count"]) != step:
             raise ValueError(f"'{where}': partition {part}'s schedule count "
                              f"{int(chain['2']['count'])} differs from the step {step}; the "
                              "port's learning rate follows the step")
-        mu, nu = (jax_to_state_dict(model, _filled(chain["0"][k], tree["params"]))
-                  for k in ("mu", "nu"))
-        named = {id(p): n for n, p in model.named_parameters()}
-        for group in opt.param_groups:
-            for p in group["params"]:
-                n = named[id(p)]
-                updates.append((opt, p, {} if count == 0 else {
-                    "step": torch.tensor(float(count)),
-                    "exp_avg": like(mu[n], p), "exp_avg_sq": like(nu[n], p)}))
+        updates += _adam_updates(model, opt, chain["0"], tree["params"])
     spectral = tree.get("spectral")
     sd = jax_to_state_dict(model, tree["params"], {"msd": spectral} if spectral else None)
-    own = model.state_dict()
-    wrong = [k for k, v in sd.items() if k not in own or own[k].shape != v.shape]
-    if wrong or len(sd) != len(own):
-        raise ValueError(f"'{where}' does not fit this model: {wrong[:3] or 'missing weights'}")
-    load_state_dict(model, sd)
-    for opt, p, st in updates:
-        opt.state.pop(p, None)
-        if st:
-            opt.state[p] = st
+    _load_checked(model, sd, updates, where)
     state.step = step
+    return state
+
+
+# -- the SimpleState of the phonemizer trainer -----------------------------------------
+#
+# The JAX `SimpleState` (ttscube_tpu/train/states.py) is {params, opt_state, step,
+# extra: None}, its opt_state optax adamw's chain (ScaleByAdamState {count, mu, nu},
+# then the decay's and the learning rate's empty states: {"0": ..., "1": {}, "2": {}});
+# the port's (train/states.py) holds the model, one torch AdamW and the step.
+
+
+def simple_state_to_jax(state) -> dict:
+    """The JAX SimpleState tree of a port SimpleState, as numpy arrays."""
+    step = np.asarray(state.step, np.int32)
+    counts, moments = _moment_trees(state.model, {
+        id(p): ("all", state.optimizer) for group in state.optimizer.param_groups
+        for p in group["params"]})
+    adam = {"count": np.asarray(counts.get("all", 0), np.int32),
+            "mu": moments["exp_avg"], "nu": moments["exp_avg_sq"]}
+    return {"params": state_dict_to_jax(state.model),
+            "opt_state": {"0": adam, "1": {}, "2": {}}, "step": step, "extra": None}
+
+
+def load_jax_simple_state(state, tree: dict, where: str = "<tree>"):
+    """Copy a JAX SimpleState tree onto a port SimpleState in place (parameters, the
+    moments and count, the step); returns it. Raises ValueError, with nothing restored,
+    when the tree is no SimpleState of this model."""
+    if not isinstance(tree, dict) or not {"params", "opt_state", "step"} <= set(tree) \
+            or not isinstance(tree["opt_state"], dict) \
+            or not {"count", "mu", "nu"} <= set(tree["opt_state"].get("0") or {}):
+        raise ValueError(f"'{where}' holds no SimpleState {{params, opt_state (adamw), "
+                         "step}")
+    try:
+        updates = _adam_updates(state.model, state.optimizer, tree["opt_state"]["0"],
+                                tree["params"])
+        sd = jax_to_state_dict(state.model, tree["params"])
+    except KeyError as e:
+        raise ValueError(f"'{where}' does not fit this model: it lacks {e}") from e
+    _load_checked(state.model, sd, updates, where)
+    state.step = int(tree["step"])
     return state

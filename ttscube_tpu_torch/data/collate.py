@@ -1,4 +1,4 @@
-"""The port's copy of the Cubegan collate (numpy only; the JAX package's
+"""The port's copy of the Cubegan and phonemizer collates (numpy only; the JAX package's
 ``data/collate.py`` is the reference this file is held against).
 
 Pure-array collates with bucketed static shapes.
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ttscube_tpu_torch.data.encodings import CubeganEncodings
+from ttscube_tpu_torch.data.encodings import CubeganEncodings, PhonemizerEncodings
 
 DURATION_CAP = 100  # frames (reference io_cubegan.py:216-218)
 HF_MAX_TOKENS = 512  # transformer context window (reference io_cubegan.py:246-277)
@@ -198,3 +198,54 @@ class CubeganCollate:
                     x_word2tok[i, w] = t + 1
         return {"x_tok_ids": x_tok_ids, "x_tok_mask": x_tok_mask,
                 "x_word2tok": x_word2tok}
+
+
+class PhonemizerCollate:
+    """Char/case ids, aligned targets and dense word spans (the JAX
+    `PhonemizerCollate`). `y_phon` comes from `hybrid` where an example has it, ids
+    looked up in encodings computed over `phones`: a hybrid symbol that never appears in
+    `phones` collates to 0 and drops out of the loss, as in the JAX package."""
+
+    def __init__(self, encodings: PhonemizerEncodings, bucket: int = 16):
+        self.encodings = encodings
+        self.bucket = bucket
+
+    def __call__(self, batch: list[dict]):
+        enc = self.encodings
+        B = len(batch)
+        max_char = _bucket(max(len(e["orig_text"]) for e in batch), self.bucket)
+        max_phon = _bucket(max(len(e.get("hybrid", e["phones"])) for e in batch), self.bucket)
+        max_words = max(max(len(e["words"]) for e in batch), 1)
+
+        x_char = np.zeros((B, max_char), np.int32)
+        x_case = np.zeros((B, max_char), np.int32)
+        y_phon = np.zeros((B, max_phon), np.int32)
+        y_new_word = np.zeros((B, max_phon), np.int32)
+        x_word_start = np.zeros((B, max_words), np.int32)
+        x_word_stop = np.zeros((B, max_words), np.int32)
+        x_num_words = np.zeros((B,), np.int32)
+
+        for i, e in enumerate(batch):
+            phones = e.get("hybrid", e["phones"])
+            phon2word = e["phon2word"]
+            offset = 0
+            for w, word in enumerate(e["words"]):
+                x_word_start[i, w] = offset
+                x_word_stop[i, w] = offset + len(word)
+                offset += len(word)
+            x_num_words[i] = len(e["words"])
+            for j, g in enumerate(e["orig_text"]):
+                low = g.lower()
+                if low != g:
+                    x_case[i, j] = 1
+                x_char[i, j] = enc.grapheme2int.get(low, 0)
+            for j, p in enumerate(phones):
+                cur = phon2word[j]
+                nxt = phon2word[j + 1] if j < len(phones) - 1 else cur + 1
+                y_new_word[i, j] = (nxt - cur + 1) if cur != nxt else 1
+                y_phon[i, j] = enc.phon2int.get(p, 0)
+
+        return {"x_char": x_char, "x_case": x_case,
+                "y_phon": y_phon, "y_new_word": y_new_word,
+                "x_word_start": x_word_start, "x_word_stop": x_word_stop,
+                "x_num_words": x_num_words}

@@ -1,9 +1,11 @@
-"""The Cubegan training corpus on disk, host-side numpy: the port's copies of
-`ttscube_tpu/data/datasets.py::CubeganDataset` and `batch_iterator`.
+"""Training corpora on disk, host-side numpy: the port's copies of
+`ttscube_tpu/data/datasets.py::CubeganDataset`, `PhonemizerDataset` and
+`batch_iterator`.
 
 A corpus folder holds per-utterance `{id}.{mgc,pitch,json,wav}` files, as the JAX
-package's importers write them. Not ported: the HF tokenizer's pre-tokenisation
-(`hf_tokenizer`, with LM conditioning), `PhonemizerDataset` and `VocoderDataset`.
+package's importers write them; the phonemizer's data is one JSON list per split. Not
+ported: the HF tokenizer's pre-tokenisation (`hf_tokenizer`, with LM conditioning) and
+`VocoderDataset`.
 """
 
 from __future__ import annotations
@@ -80,6 +82,21 @@ class CubeganDataset:
         audio = np.array(audio, np.float32)
         audio, pitch = self._make_absolute_silence(audio, pitch, meta)
         return {"meta": meta, "mgc": mgc, "pitch": pitch, "audio": audio}
+
+
+class PhonemizerDataset:
+    """The JSON list of examples that `import_phonemizer_blizzard` writes: each holds
+    orig_text, phones, hybrid, words and phon2word."""
+
+    def __init__(self, filename: str):
+        with open(filename) as f:
+            self._examples = json.load(f)
+
+    def __len__(self):
+        return len(self._examples)
+
+    def __getitem__(self, i):
+        return self._examples[i]
 
 
 def batch_iterator(dataset, batch_size: int, collate, shuffle: bool = True, seed: int = 0,

@@ -1,7 +1,7 @@
 """The port's copy of the JSON encodings of `ttscube_tpu/data/encodings.py`: the
-vocabularies and stats a trained model was built with, in the same files. The trainer
-computes `CubeganEncodings` from its train set and saves them; the files are the JAX
-package's, byte for byte."""
+vocabularies and stats a trained model was built with, in the same files. The trainers
+compute `CubeganEncodings` and `PhonemizerEncodings` from their train sets and save
+them; the files are the JAX package's, byte for byte."""
 
 from __future__ import annotations
 
@@ -63,6 +63,20 @@ class PhonemizerEncodings:
         self.phon2int: dict[str, int] = {}
         if filename is not None:
             self.load(filename)
+
+    def compute(self, examples):
+        """Graphemes (lower-cased) of `orig_text` and phones of `phones`, each from id 1
+        in order of first sight; id 0 is PAD."""
+        self.phon2int = {"PAD": 0}
+        self.grapheme2int = {"PAD": 0}
+        for example in examples:
+            for g in example["orig_text"]:
+                g = g.lower()
+                if g not in self.grapheme2int:
+                    self.grapheme2int[g] = len(self.grapheme2int)
+            for p in example["phones"]:
+                if p not in self.phon2int:
+                    self.phon2int[p] = len(self.phon2int)
 
     @property
     def phonemes(self):

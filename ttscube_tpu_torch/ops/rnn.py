@@ -35,3 +35,22 @@ class LSTM(nn.LSTM):
                     p.zero_()
                 else:
                     p.uniform_(-scale, scale, generator=gen)
+
+
+class LSTMCell(nn.LSTMCell):
+    """One LSTM step for the decoders, counterpart of `ttscube_tpu/ops/rnn.py::LSTMCell`:
+    `cell(x, (h, c)) -> (h, c)`. The JAX cell's wi (D, 4H), wh (H, 4H) and single bias b
+    map onto weight_ih, weight_hh and bias_ih as for `LSTM`, with bias_hh kept at zero
+    and out of training."""
+
+    def __init__(self, input_size: int, features: int):
+        super().__init__(input_size, features)
+        self.bias_hh.requires_grad_(False)
+
+    init_weights = LSTM.init_weights
+
+    @staticmethod
+    def initial_state(batch: int, features: int, device=None, dtype=torch.float32):
+        """The zero state (h, c), each (batch, features)."""
+        return (torch.zeros(batch, features, device=device, dtype=dtype),
+                torch.zeros(batch, features, device=device, dtype=dtype))

@@ -2,12 +2,13 @@
 same flags and the same files, and no JAX.
 
     python -m ttscube_tpu_torch.scripts.import_corpus --train-folder raw/train \
-        [--dev-folder raw/dev] [--device cpu]
+        [--dev-folder raw/dev] [--g2p data/g2p] [--device cpu]
 
 Folders of {name}.{txt,wav,phs} triples → {train,dev}-output/{name}.{txt,lab,mgc,f0},
 the HTK .phs alignment merged into per-frame labels; the mel (hop 256) runs on the card
-unless `--device cpu`. `--g2p` needs word G2P, which is not ported yet (ROADMAP.md
-A11.3), and raises.
+unless `--device cpu`. With `--g2p BASE` the .lab transcriptions come from the word G2P
+model at BASE (`models/g2p.py`, as `scripts/g2p.py` trains it; on the same device as
+the mel) in place of the lower-cased characters.
 """
 
 import os
@@ -33,7 +34,7 @@ def _scan(folder, need_phs=True):
     return out
 
 
-def _process(files, base_folder, out_folder, args, counter_start=0):
+def _process(files, base_folder, out_folder, args, g2p=None, counter_start=0):
     import torch
 
     from ttscube_tpu_torch import resolve_device
@@ -66,7 +67,7 @@ def _process(files, base_folder, out_folder, args, counter_start=0):
         if exists(phs):
             if not create_lab_file(join(base_folder, base + ".txt"), phs, mgc.shape[0],
                                    join(out_folder, tgt + ".lab"),
-                                   speaker_name=args.speaker, lang=args.lang,
+                                   speaker_name=args.speaker, g2p=g2p, lang=args.lang,
                                    emotion=args.emotion):
                 continue
         np.save(join(out_folder, tgt + ".mgc"), mgc)
@@ -84,7 +85,7 @@ def parser() -> ArgumentParser:
     p.add_argument("--mgc-order", dest="mgc_order", type=int, default=80)
     p.add_argument("--speaker", dest="speaker", default=None)
     p.add_argument("--g2p", dest="g2p", default=None,
-                   help="word G2P model (not ported yet: A11.3)")
+                   help="word G2P model base (scripts/g2p.py --store)")
     p.add_argument("--prefix", dest="prefix", default=None)
     p.add_argument("--lang", dest="lang", default="none")
     p.add_argument("--emotion", dest="emotion", default="neutral")
@@ -97,14 +98,17 @@ def parser() -> ArgumentParser:
 
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
+    g2p = None
     if args.g2p:
-        raise NotImplementedError(f"--g2p {args.g2p} is not ported yet (ROADMAP.md A11.3: "
-                                  "PhonemizerM2M, then word G2P)")
+        from ttscube_tpu_torch.models.g2p import G2P
+
+        g2p = G2P(args.device)
+        g2p.load(args.g2p)
     train_files = _scan(args.train_folder)
     dev_files = _scan(args.dev_folder, need_phs=False)
     sys.stdout.write(f"found {len(train_files)} training / {len(dev_files)} dev files\n")
-    n = _process(train_files, args.train_folder, args.train_output, args)
-    _process(dev_files, args.dev_folder, args.dev_output, args, counter_start=n)
+    n = _process(train_files, args.train_folder, args.train_output, args, g2p)
+    _process(dev_files, args.dev_folder, args.dev_output, args, g2p, counter_start=n)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@ back to the weights of `{base}.last` when that file cannot be read.
 
 The steps are the port's: `train_step(state, batch) -> (state, metrics)` and
 `val_step(state, batch) -> metrics`, on batches of tensors on `device`
-(`models/cubegan.batch_to_torch`). Per-step randomness (the crop offsets) comes from
+(`models/cubegan.batch_to_torch`), for Cubegan's TrainState or the phonemizer's
+SimpleState (train/states.py). Per-step randomness (the crop offsets) comes from
 the state's seed and step inside the step, so a resumed run draws what the live run
 would have drawn.
 """

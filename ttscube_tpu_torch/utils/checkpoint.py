@@ -6,6 +6,8 @@
     {base}.best       the parameters of the best validation epoch  \
     {base}.last       the parameters of the last saved epoch        } flax msgpack
     {base}.opt.last   the whole TrainState {params, opt_state, spectral, step} /
+                      (the phonemizer's: SimpleState {params, opt_state, step, extra})
+    {base}.pacc.best, {base}.sacc.best   the phonemizer trainer's best parameters
 
 Every weight file is the JAX package's pytree written with `utils/serialization.py`,
 so a file moves to the other package in either direction: JAX's `load_params` and
@@ -23,8 +25,11 @@ import os
 
 import torch
 
-from ttscube_tpu_torch.convert import (load_jax_params, load_jax_train_state, read_msgpack,
-                                       state_dict_to_jax, train_state_to_jax)
+from ttscube_tpu_torch.convert import (load_jax_params, load_jax_simple_state,
+                                       load_jax_train_state, read_msgpack,
+                                       simple_state_to_jax, state_dict_to_jax,
+                                       train_state_to_jax)
+from ttscube_tpu_torch.train.states import SimpleState
 from ttscube_tpu_torch.utils import config_io
 from ttscube_tpu_torch.utils.ranks import is_writer
 from ttscube_tpu_torch.utils.serialization import msgpack_restore, msgpack_serialize
@@ -54,12 +59,14 @@ def load_params(path: str, module: torch.nn.Module) -> torch.nn.Module:
 
 def save_train_state(path: str, state) -> None:
     """The whole TrainState (parameters, optimizer state, spectral u, step) as the
-    JAX package's TrainState tree."""
-    _write(path, train_state_to_jax(state))
+    JAX package's TrainState tree; a SimpleState as its SimpleState tree."""
+    _write(path, simple_state_to_jax(state) if isinstance(state, SimpleState)
+           else train_state_to_jax(state))
 
 
 def load_train_state(path: str, state):
-    """Restore a TrainState in place from an `.opt.last` file; returns it.
+    """Restore a TrainState or a SimpleState in place from an `.opt.last` file;
+    returns it.
 
     Raises ValueError, with nothing restored, for an empty file (a save that was cut
     off) and for a legacy single-state optimizer checkpoint: the trainer then resumes
@@ -70,7 +77,8 @@ def load_train_state(path: str, state):
         raise ValueError(
             f"'{path}' is empty (truncated by an interrupted save). Resume weights "
             "only from '.last'; the optimizer restarts from step 0.")
-    return load_jax_train_state(state, msgpack_restore(data), path)
+    load = load_jax_simple_state if isinstance(state, SimpleState) else load_jax_train_state
+    return load(state, msgpack_restore(data), path)
 
 
 def save_config(base: str, config: dict) -> None:
