@@ -88,6 +88,19 @@ Phases, each printing one line with its seconds as it ends:
               trained, and one request through TTSCube from the exported volumes on the
               card (B1 once); the import's seconds per audio second by part, the
               export's seconds, the request's ms
+  lm          HF and fastText conditioning at full width on import_export's corpus:
+              make_demo_lm writes a BERT-base directory (768 wide, 12 layers, 12 heads,
+              vocabulary 30,522, seeded) and a 2-layer one at the same width for the CLI
+              round trip, beside a seeded 300-d .vec; the BERT-base encoder alone on the
+              card against the CPU (B = 2, T = 64, a padded and a fully masked row; 1e-4);
+              the trainer CLI with --lm hf:<dir> --fused-tail-train (B1 and B2 launch, the
+              encoder moves by less than 1e-4, --resume bit-equal and its next step
+              bit-equal) and with --lm fasttext:<vec>; a train step at B = 16 over
+              512-token windows through BERT-base, beside the same step without the LM,
+              and the encoder's forward and backward alone; both voices exported and
+              served by TTSCube on the card from the unpacked files (the HF tokenizer
+              directory moved away): warmup and the first request within 1.5x, the three
+              requests' latencies, fp32 against the CPU (5e-5), the encoder's device ms
   generator_resblock2  a plain Generator at v1's widths with ResBlock2 (HiFi-GAN v3's
               kernels and dilations), fp32 on the card against the CPU
   times       each kernel's median time beside its plain version's and its bound (and
@@ -177,6 +190,19 @@ PHONEMIZER_STEPS = {"aligned": 240, "m2m": 12}
 PHONEMIZER_TIMED = 6
 G2P_EPOCHS = 10
 TOL_LOGITS = 2e-5  # the phonemizers' and G2P's logits, card against CPU (the cond tolerance)
+# lm: HF conditioning's encoder at BERT-base (bert-base-uncased's config.json, Devlin et
+# al. 2019: 768 wide, 12 layers, 12 heads, 3,072 feed-forward, 30,522 vocabulary rows);
+# the trainer CLI's round trip (train, resume, export, serve) at the same width and
+# LM_CLI_LAYERS layers, cut in depth for the time limit; fastText at the reference's
+# 300-d vectors. The encoder alone, card against CPU, at LM_CHECK (B, T) within TOL_LM;
+# LM_TIMED_STEPS train steps at B = LM_STEP_BATCH over 512-token windows
+LM_VOCAB = 30522
+LM_CLI_LAYERS = 2
+LM_VEC_DIM = 300
+LM_CHECK = (2, 64)
+TOL_LM = 1e-4
+LM_STEP_BATCH = 16
+LM_TIMED_STEPS = 4
 # C7: the first request after TTSCube.warmup, at most this many times the same request's
 # steady-state median
 FIRST_REQUEST_BOUND = 1.5
@@ -1266,6 +1292,330 @@ def import_export_phase(work: Path, pbase: str) -> dict:
     return dict(counts=counts, per_audio_s=per, export_s=export_s, request_ms=request_ms)
 
 
+def write_vec(path: Path, words, dim: int, seed: int) -> str:
+    """A seeded fastText `.vec` table ("count dim" header, one word per line)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    path.write_text(f"{len(words)} {dim}\n" + "".join(
+        w + " " + " ".join(f"{v:.5f}" for v in rng.standard_normal(dim)) + "\n"
+        for w in words))
+    return str(path)
+
+
+def unpack(volumes: str, n: int, dest: Path) -> list:
+    """The export's `n` volumes `{volumes}-NN` joined and unpacked into `dest`; returns
+    the archive's member names."""
+    import tarfile
+
+    dest.mkdir(parents=True)
+    with open(dest / "voice.tar.gz", "wb") as f:
+        for i in range(n):
+            f.write(Path(f"{volumes}-{i:02d}").read_bytes())
+    with tarfile.open(dest / "voice.tar.gz", "r:gz") as tar:
+        tar.extractall(dest)
+        return tar.getnames()
+
+
+def lm_phase(work: Path, pbase: str) -> dict:
+    """HF and fastText conditioning on the card, on the corpus that import_export
+    imported into `work/card` and with the aligned phonemizer the phonemizer phase
+    trained (`pbase`): the port's make_demo_lm writes the BERT-base directory (768
+    wide, 12 layers, 12 heads, the vocabulary padded to LM_VOCAB rows, seeded) and one of
+    LM_CLI_LAYERS layers at the same width for the trainer CLI's round trip, beside a
+    seeded LM_VEC_DIM-d `.vec` over the demo lexicon; the BERT-base encoder alone on the
+    card against the CPU (fp32, TF32 off, LM_CHECK, one row padded, one fully masked;
+    TOL_LM); the trainer CLI with `--lm hf:<dir> --fused-tail-train` (B1 and B2 launch,
+    the encoder moves by less than 1e-4, `--resume` bit-equal and the next step from it
+    bit-equal under deterministic algorithms) and with `--lm fasttext:<vec>`; one train
+    step at B = LM_STEP_BATCH with 512-token windows through the BERT-base encoder, its
+    host ms and busy share beside the same step without the LM, and the encoder's
+    forward and backward alone; each voice exported (`--wordvec`, `cubegan.hf/`) and
+    served by TTSCube on the card from the unpacked files, the HF voice with its
+    tokenizer directory moved away: the first request after warmup within
+    FIRST_REQUEST_BOUND of the steady one, REQUESTS' latencies, an fp32 request against
+    the CPU (TOL_FP32), and for HF the encoder's device ms in a request. Returns the
+    launches of the phase's paths and the numbers to print."""
+    import copy
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ttscube_tpu_torch.api import TTSCube
+    from ttscube_tpu_torch.convert import init_random
+    from ttscube_tpu_torch.data.collate import CubeganCollate
+    from ttscube_tpu_torch.data.datasets import CubeganDataset
+    from ttscube_tpu_torch.data.encodings import CubeganEncodings
+    from ttscube_tpu_torch.models import cubegan as tcg
+    from ttscube_tpu_torch.models.hifigan import HifiganConfig
+    from ttscube_tpu_torch.models.languasito import LanguasitoConfig
+    from ttscube_tpu_torch.models.lm import TransformerEncoder, load_local_lm
+    from ttscube_tpu_torch.scripts import export_model, make_demo_corpus, make_demo_lm
+    from ttscube_tpu_torch.utils import config_io
+    from ttscube_tpu_torch.utils.checkpoint import load_config
+    from ttscube_tpu_torch.utils.hf import HFTokenizer
+
+    dev = torch.device("cuda")
+    out = {"counts": []}
+    t1 = time.perf_counter()
+    dirs = {name: make_demo_lm.main(
+        ["--output", str(work / f"lm_{name}"), "--hidden", "768", "--layers", str(layers),
+         "--heads", "12", "--pad-vocab", str(LM_VOCAB), "--seed", str(SEED)])
+        for name, layers in (("base", 12), ("cli", LM_CLI_LAYERS))}
+    vec = write_vec(work / "words.vec", sorted(make_demo_corpus.WORDS), LM_VEC_DIM, SEED)
+    print(f"  make_demo_lm: BERT-base (768 wide, 12 layers, 12 heads, vocabulary "
+          f"{LM_VOCAB}) and the CLI's {LM_CLI_LAYERS}-layer directory in "
+          f"{time.perf_counter() - t1:.1f} s; pytorch_model.bin "
+          f"{os.path.getsize(os.path.join(dirs['base'], 'pytorch_model.bin'))} bytes",
+          flush=True)
+
+    # the BERT-base encoder alone, card against CPU
+    cfg12, sd12 = load_local_lm(dirs["base"])
+    check(sd12 is not None and (cfg12.hidden_size, cfg12.num_layers, cfg12.num_heads,
+                                cfg12.intermediate_size, cfg12.vocab_size)
+          == (768, 12, 12, 3072, LM_VOCAB), f"lm: the BERT-base directory's config {cfg12}")
+    enc_cpu = TransformerEncoder(cfg12).eval()
+    enc_cpu.load_state_dict(sd12, strict=True)
+    enc = copy.deepcopy(enc_cpu).to(dev)
+    B, T = LM_CHECK
+    g = torch.Generator().manual_seed(T)
+    ids = torch.randint(1, LM_VOCAB, (B, T), generator=g)
+    mask = torch.ones(B, T, dtype=torch.bool)
+    mask[0, T - 23:], ids[0, T - 23:] = False, 0  # padded
+    mask[1] = False  # every token masked: a uniform softmax, as in JAX
+    with torch.no_grad():
+        with no_tf32():
+            got = enc(ids.to(dev), mask.to(dev))
+            again = enc(ids.to(dev), mask.to(dev))
+        want = enc_cpu(ids, mask)
+        ids_d, mask_d = ids.to(dev), mask.to(dev)
+        enc_ms = statistics.median(cuda_times(lambda: enc(ids_d, mask_d), 5, TIME_PER))
+    err = distance(got, want)[0]
+    print(f"  BERT-base encoder B={B} T={T} (row 0 padded after {T - 23}, row 1 fully "
+          f"masked) fp32 (TF32 off) card vs CPU max_abs_err={err:.3e} tol={TOL_LM:.0e} "
+          f"bit_equal_relaunch={torch.equal(got, again)}; forward {enc_ms:.3f} ms on the "
+          f"card (median over {TIME_PER} in a row)", flush=True)
+    check(bool(torch.isfinite(got).all()) and err <= TOL_LM,
+          f"lm: the encoder on the card differs from the CPU by {err:.3e}")
+    del enc, enc_cpu
+
+    # the trainer CLI: --lm hf (B1 and B2) and --lm fasttext
+    train, dev_folder = str(work / "card" / "train"), str(work / "card" / "dev")
+
+    def argv(name, spec):
+        base = str(work / "lm_model" / name / "cubegan")
+        return base, ["--train-folder", train, "--dev-folder", dev_folder, "--output-base",
+                      base, "--batch-size", str(TRAINER_BATCH), "--max-steps", "2",
+                      "--max-epochs", "1", "--epoch-generation", "0", "--fused-tail-train",
+                      "--lm", spec]
+
+    runs = {}
+    for kind, spec in (("hf", f"hf:{dirs['cli']}"), ("fasttext", f"fasttext:{vec}")):
+        base, args = argv(kind, spec)
+        torch.cuda.synchronize()
+        zero_counts()
+        t1 = time.perf_counter()
+        live = train_cli(args)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t1
+        counts = read_counts()
+        out["counts"].append(counts)
+        conf = load_config(base)
+        check(live.step == 2 and counts["fused_tail_stage_grad"] == 2
+              and counts["fused_tail_stage"] >= 2 and os.path.exists(base + ".opt.last")
+              and conf["conditioning"] == spec and ("lm_config" in conf) == (kind == "hf"),
+              f"lm {kind} trainer: step {live.step}, launches {counts}, yaml {conf}")
+        runs[kind] = dict(base=base, args=args, live=live, cli_s=cli_s, counts=counts)
+        print(f"  trainer CLI --lm {kind} (--fused-tail-train, B={TRAINER_BATCH}): {cli_s:.1f} "
+              f"s for 2 steps, validation and the saves; launches {counts}", flush=True)
+    live = runs["hf"]["live"]
+    check(hasattr(live.model, "hf") and "b" in live.optimizers
+          and live.model.hf.config.num_layers == LM_CLI_LAYERS
+          and runs["fasttext"]["live"].model.lang.tower_t.lm.input_size == LM_VEC_DIM,
+          "lm: the trainers' models")
+    _, imported = load_local_lm(dirs["cli"])
+    moved = max(float((live.model.hf.state_dict()[k].cpu() - v).abs().max())
+                for k, v in imported.items())
+    t1 = time.perf_counter()
+    resumed = train_cli(runs["hf"]["args"] + ["--resume", "--max-epochs", "0"])
+    resume_s = time.perf_counter() - t1
+    restored = resumed.step == 2 and same_train_state(live, resumed)
+    tenc = CubeganEncodings(runs["hf"]["base"] + ".encodings")
+    ds = CubeganDataset(train, hf_tokenizer=HFTokenizer(dirs["cli"]))
+    collate = CubeganCollate(tenc, hf_conditioning=True, bucket_tokens=512, bucket_words=8)
+    nb = tcg.batch_to_torch(collate([ds[i] for i in range(TRAINER_BATCH)]), dev)
+    with deterministic():
+        _, m_live = tcg.train_step(live, nb)
+        _, m_back = tcg.train_step(resumed, nb)
+    equal = (all(torch.equal(v, m_back[k]) for k, v in m_live.items())
+             and same_train_state(live, resumed))
+    print(f"  --lm hf: the imported encoder moved by {moved:.3e} in 2 steps (b partition, "
+          f"Adam at 1e-6; limit 1e-4); --resume in {resume_s:.1f} s restores the state "
+          f"bit-equal: {restored}; next step from both bit-equal: {equal}", flush=True)
+    check(0 < moved < 1e-4, f"lm: the encoder moved by {moved:.3e}")
+    check(restored and equal, "lm: --resume or the next step from it differs")
+    del resumed, runs["hf"]["live"], runs["fasttext"]["live"], live, nb
+
+    # one train step at B = LM_STEP_BATCH with 512-token windows through BERT-base,
+    # beside the same step without the LM
+    cfg = tcg.CubeganConfig(
+        languasito=LanguasitoConfig(num_phones=len(tenc.phon2int),
+                                    num_speakers=len(tenc.speaker2int),
+                                    max_pitch=tenc.max_pitch, max_duration=tenc.max_duration,
+                                    cond_type="hf", lm_dim=cfg12.hidden_size),
+        hifigan=HifiganConfig(fused_tail_train=True))
+    ds12 = CubeganDataset(train, hf_tokenizer=HFTokenizer(dirs["base"]))
+    b16 = tcg.batch_to_torch(collate([ds12[i] for i in range(LM_STEP_BATCH)]), dev)
+    check(tuple(b16["x_tok_ids"].shape) == (LM_STEP_BATCH, 512), "lm: the step's token window")
+    step_rows = {}
+    for name in ("hf", "plain"):
+        if name == "hf":
+            model = init_random(tcg.Cubegan(cfg, train=True, lm_config=cfg12), SEED + 20)
+            model.hf.load_state_dict(sd12, strict=True)
+            batch = b16
+        else:
+            model = init_random(tcg.Cubegan(dataclasses.replace(
+                cfg, languasito=dataclasses.replace(cfg.languasito, cond_type=None,
+                                                    lm_dim=None)), train=True), SEED + 20)
+            batch = {k: v for k, v in b16.items()
+                     if k not in ("x_tok_ids", "x_tok_mask", "x_word2tok")}
+        st = tcg.create_train_state(model.to(dev))
+        torch.cuda.synchronize()
+        zero_counts()
+        ms = []
+        for _ in range(LM_TIMED_STEPS):
+            t1 = time.perf_counter()
+            tcg.train_step(st, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        counts = read_counts()
+        check(counts["fused_tail_stage_grad"] == LM_TIMED_STEPS,
+              f"lm {name} step: launches {counts}")
+        if name == "hf":
+            out["counts"].append(counts)
+        prof = device_profile(lambda: tcg.train_step(st, batch))
+        row = step_rows[name] = dict(ms=statistics.median(ms[1:]), busy=prof[1] / prof[0],
+                                     busy_ms=prof[1])
+        if name == "hf":
+            hf = st.model.hf
+            ids16, mask16 = b16["x_tok_ids"], b16["x_tok_mask"]
+            row["enc_ms"] = statistics.median(cuda_times(
+                lambda: hf(ids16, mask16).sum().backward(), 3))
+            hf.zero_grad(set_to_none=True)
+        what = "BERT-base over 512-token windows" if name == "hf" else "without the LM"
+        print(f"  train step B={LM_STEP_BATCH} ({what}, fp32 with the fused tail, "
+              f"default TF32): host ms {', '.join(f'{v:.1f}' for v in ms)}, median after "
+              f"the first {row['ms']:.1f}", flush=True)
+        print_profile(f"train step B={LM_STEP_BATCH} {name}", *prof)
+        del st, model, batch
+        torch.cuda.empty_cache()
+    hf_row = step_rows["hf"]
+    print(f"  the encoder's forward and backward alone (B={LM_STEP_BATCH}, T=512): "
+          f"{hf_row['enc_ms']:.1f} ms on the card = {hf_row['enc_ms'] / hf_row['busy_ms']:.3f} "
+          f"of the step's device-busy ms; the step {hf_row['ms']:.1f} ms against "
+          f"{step_rows['plain']['ms']:.1f} without the LM", flush=True)
+    out["step"] = step_rows
+
+    # export and serve both voices from the unpacked files
+    served = {}
+    for kind in ("hf", "fasttext"):
+        vol = str(work / "lm_dist" / kind / "voice")
+        os.makedirs(os.path.dirname(vol))
+        t1 = time.perf_counter()
+        n = export_model.main(["--input-model", runs[kind]["base"], "--input-phonemizer", pbase,
+                               "--output-model", vol]
+                              + (["--wordvec", vec] if kind == "fasttext" else []))
+        export_s = time.perf_counter() - t1
+        pkg = work / "lm_pkg" / kind
+        names = unpack(vol, n, pkg)
+        check(("cubegan.hf/tokenizer.json" in names and not any(
+            x.endswith(".bin") for x in names)) if kind == "hf" else
+              "cubegan.wordvec.npz" in names, f"lm {kind} export: {names}")
+        away = work / "lm_cli_moved"
+        if kind == "hf":
+            os.rename(dirs["cli"], away)  # only cubegan.hf/ can serve the voice now
+        try:
+            cube = TTSCube(str(pkg / "cubegan"), str(pkg / "phonemizer"))  # the card
+            check(hasattr(cube.model, "hf") == (kind == "hf") and cube.device.type == "cuda",
+                  f"lm {kind}: the served model")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cube.warmup(speaker="spk0")
+            warm_s = time.perf_counter() - t1
+            first = []
+            for _ in range(4):
+                t1 = time.perf_counter()
+                cube(REQUESTS[0], speaker="spk0")
+                first.append((time.perf_counter() - t1) * 1e3)
+            torch.cuda.synchronize()
+            zero_counts()
+            lat = {}
+            for text in REQUESTS:
+                ms = []
+                for _ in range(3):
+                    t1 = time.perf_counter()
+                    pcm = cube(text, speaker="spk0")
+                    ms.append((time.perf_counter() - t1) * 1e3)
+                check(pcm.dtype == np.int16 and len(pcm) > 0, f"lm {kind}: served audio")
+                lat[len(text)] = (statistics.median(ms), len(pcm) // HOP)
+            counts = read_counts()
+            out["counts"].append(counts)
+            check(counts["fused_tail_stage"] == 3 * len(REQUESTS),
+                  f"lm {kind}: B1 launches for {3 * len(REQUESTS)} requests: {counts}")
+            row = served[kind] = dict(export_s=export_s, warm_s=warm_s, first=first[0],
+                                      steady=statistics.median(first[1:]), lat=lat)
+            if kind == "hf":
+                X = cube._prepare(REQUESTS[1], "spk0")
+                with torch.inference_mode():
+                    eprof = device_profile(lambda: cube.model.hf(X["x_tok_ids"],
+                                                                 X["x_tok_mask"]))
+                rprof = device_profile(lambda: cube(REQUESTS[1], speaker="spk0"))
+                row.update(enc_ms=eprof[1], req_busy=rprof[1], req_wall=rprof[0],
+                           tokens=tuple(X["x_tok_ids"].shape))
+            # an fp32 request on the card (TF32 off) against the CPU, from the same files
+            # with fp32 storage
+            pkg32 = work / "lm_pkg32" / kind
+            shutil.copytree(pkg, pkg32)
+            conf = config_io.load(str(pkg32 / "cubegan.yaml"))
+            conf["hifigan"] = {"storage_dtype": "float32"}
+            config_io.dump(conf, str(pkg32 / "cubegan.yaml"))
+            on_card = TTSCube(str(pkg32 / "cubegan"), str(pkg32 / "phonemizer"), device="cuda")
+            on_cpu = TTSCube(str(pkg32 / "cubegan"), str(pkg32 / "phonemizer"), device="cpu")
+            with no_tf32():
+                a_card, n_card = on_card.synthesize(REQUESTS[0], speaker="spk0")
+            a_cpu, n_cpu = on_cpu.synthesize(REQUESTS[0], speaker="spk0")
+            row["fp32_err"] = float(abs(a_card - a_cpu).max()) if n_card == n_cpu else np.inf
+            del cube, on_card, on_cpu
+        finally:
+            if away.exists():
+                os.rename(away, dirs["cli"])
+        moved_note = " (tokenizer directory moved away)" if kind == "hf" else ""
+        print(f"  {kind} voice: export_model {export_s:.2f} s ({n} volume(s)); TTSCube from "
+              f"the unpacked files on the card{moved_note}: warmup {warm_s:.2f} s, first request after it {row['first']:.1f} ms, steady "
+              f"{row['steady']:.1f} ms (bound {FIRST_REQUEST_BOUND}x); requests (median of 3) "
+              + ", ".join(f"{c} chars ({f} frames) {v:.1f} ms" for c, (v, f) in lat.items())
+              + f"; fp32 card vs CPU max_abs_err={row['fp32_err']:.3e} tol={TOL_FP32:.0e}",
+              flush=True)
+        if kind == "hf":
+            print(f"  hf voice ({LM_CLI_LAYERS}-layer encoder): the encoder alone on the "
+                  f"request's window {row['tokens']} {row['enc_ms']:.3f} device ms; the "
+                  f"request of {len(REQUESTS[1])} chars under the profiler: wall "
+                  f"{row['req_wall']:.1f} ms, device busy {row['req_busy']:.1f} ms "
+                  f"(encoder {row['enc_ms'] / row['req_busy']:.3f} of it)", flush=True)
+        check(row["fp32_err"] <= TOL_FP32, f"lm {kind}: fp32 audio on the card differs "
+                                           f"from the CPU by {row['fp32_err']:.3e}")
+        check(row["first"] <= FIRST_REQUEST_BOUND * row["steady"],
+              f"lm {kind}: the first request after warmup took {row['first']:.1f} ms, more "
+              f"than {FIRST_REQUEST_BOUND} x the steady state's {row['steady']:.1f} ms")
+    out["served"] = served
+    out["counts"] = {n: sum(c[n] for c in out["counts"]) for n in out["counts"][0]}
+    out["enc_err"] = err
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2154,9 +2504,19 @@ def main() -> int:
     # -- import_export ------------------------------------------------------------------
     t0 = time.perf_counter()
     ie_run = import_export_phase(work, ph_run["pbase"])
-    shutil.rmtree(work)
     say("import_export", t0, s_per_audio_s=f"{ie_run['per_audio_s']['total_s']:.5f}",
         export_s=f"{ie_run['export_s']:.2f}", request_ms=f"{ie_run['request_ms']:.1f}")
+
+    # -- lm -------------------------------------------------------------------------------
+    t0 = time.perf_counter()
+    lm_run = lm_phase(work, ph_run["pbase"])
+    shutil.rmtree(work)
+    say("lm", t0, encoder_err=f"{lm_run['enc_err']:.3e}",
+        step_ms=f"{lm_run['step']['hf']['ms']:.1f}",
+        plain_step_ms=f"{lm_run['step']['plain']['ms']:.1f}",
+        hf_request_ms=f"{lm_run['served']['hf']['steady']:.1f}",
+        launches_b1=lm_run["counts"]["fused_tail_stage"],
+        launches_b2=lm_run["counts"]["fused_tail_stage_grad"])
 
     # -- generator_resblock2 ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2381,10 +2741,12 @@ def main() -> int:
     # launches on the main paths (warmup, serve, serve_wide, serve_batch whole and
     # chunked, train, train_bf16, trainer in fp32 and in bf16, the mesh's trainer and
     # synthesis, the phonemizer family's training and decoding, the exported voice's
-    # request), each counted from zero just before its path ran
+    # request, the LM-conditioned trainers, step and voices), each counted from zero just
+    # before its path ran
     paths = (warm_counts, serve_counts, wide_counts, batch_runs["whole"]["counts"],
              batch_runs["chunked"]["counts"], train_counts, bf16_counts, trainer_counts,
-             trainer16_counts, mesh_run["counts"], ph_run["counts"], ie_run["counts"])
+             trainer16_counts, mesh_run["counts"], ph_run["counts"], ie_run["counts"],
+             lm_run["counts"])
     main_counts = {n: sum(c[n] for c in paths) for n in serve_counts}
     print(f"  main-path launches: {main_counts}; launches in the kernel phases: "
           f"{phase_launches}", flush=True)

@@ -2,7 +2,7 @@
 `scripts/export_model.py`, run in a subprocess on the CPU, on one seeded training state:
 the same `.model` bytes, the same number of volumes, the same descriptor keys; the
 packaged files serve in both packages' TTSCube with audio within 5e-5 (fp32 serving, as
-tests/test_torch_api.py), and a conditioned model is refused (A11.2)."""
+tests/test_torch_api.py), and a fastText model without its word vectors is refused."""
 
 import os
 import shutil
@@ -108,8 +108,11 @@ def test_export_matches_jax_and_serves_in_both(tmp_path):
 
 
 def test_export_refuses_conditioned_models(tmp_path):
+    """A fastText-conditioned model without its word vectors (`--wordvec`) is refused,
+    as the JAX exporter refuses it; conditioned models that have what they need export
+    (tests/test_torch_lm_serve.py)."""
     _run(tmp_path / "run", conditioning="fasttext:en")
-    with pytest.raises(NotImplementedError, match="A11.2"):
+    with pytest.raises(SystemExit, match="--wordvec"):
         export_model.main(["--input-model", str(tmp_path / "run" / "cubegan"),
                            "--input-phonemizer", str(tmp_path / "run" / "phonemizer"),
                            "--output-model", str(tmp_path / "dist")])

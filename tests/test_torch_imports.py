@@ -1,10 +1,11 @@
 """The port runs on a machine that has PyTorch and numpy but no JAX, flax, optax, yaml,
-msgpack, transformers, tokenizers, PIL or tqdm. Every module of `ttscube_tpu_torch/` (its mesh in `parallel/`,
-`entry.py` and the scripts included), `chip_smoke.py`, `chip_variants.py` and
-`chip_probes.py` is parsed here: none may import JAX, flax, optax, yaml, msgpack, PIL,
-tqdm or the JAX package `ttscube_tpu` anywhere (the port reads and writes its checkpoint
-files with its own `utils/serialization.py` and `utils/config_io.py`, and its PNGs with
-zlib)."""
+msgpack, transformers, tokenizers, safetensors, PIL or tqdm. Every module of
+`ttscube_tpu_torch/` (its mesh in `parallel/`, `entry.py` and the scripts included),
+`chip_smoke.py`, `chip_variants.py` and `chip_probes.py` is parsed here: none may import
+JAX, flax, optax, yaml, msgpack, transformers, tokenizers, safetensors, PIL, tqdm or the
+JAX package `ttscube_tpu` anywhere (the port reads and writes its checkpoint files with
+its own `utils/serialization.py` and `utils/config_io.py`, its PNGs with zlib, and an
+HF directory's tokenizer.json and weights with `utils/hf.py` and `models/lm.py`)."""
 
 import ast
 import subprocess
@@ -16,7 +17,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "ttscube_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_variants.py", ROOT / "chip_probes.py"]
-NEVER = {"jax", "jaxlib", "flax", "optax", "ttscube_tpu", "PIL", "tqdm"}
+NEVER = {"jax", "jaxlib", "flax", "optax", "ttscube_tpu", "PIL", "tqdm", "transformers",
+         "tokenizers", "safetensors"}
 NOT_AT_MODULE_LEVEL = {"yaml", "msgpack"}
 
 
@@ -76,15 +78,20 @@ def test_the_mesh_and_the_corpus_modules_are_checked():
 def test_the_guard_catches_what_it_guards():
     bad = ast.parse("import yaml\nfrom ttscube_tpu.dsp import mel\n"
                     "def f():\n    import msgpack\n    import jax.numpy as jnp\n"
-                    "    from PIL import Image\n    import tqdm\n")
+                    "    from PIL import Image\n    import tqdm\n"
+                    "    from transformers import AutoTokenizer\n    import tokenizers\n"
+                    "    from safetensors.numpy import load_file\n")
     found = list(_imports(bad))
     assert ("yaml", True) in found and ("ttscube_tpu", True) in found
     assert ("msgpack", False) in found and ("jax", False) in found
     assert ("PIL", False) in found and ("tqdm", False) in found
+    assert {("transformers", False), ("tokenizers", False), ("safetensors", False)} <= set(found)
 
 
 PHONEMIZER_MODULES = ("models.blocks", "models.g2p", "models.phonemizer", "train.states",
                       "scripts.train_phonemizer", "scripts.g2p", "scripts.import_corpus")
+LM_MODULES = ("utils.hf", "utils.hfcond", "utils.wordvec", "models.lm", "models.cubegan",
+              "api", "scripts.train_cubegan", "scripts.export_model", "scripts.make_demo_lm")
 
 
 def test_the_phonemizer_family_is_checked():
@@ -92,13 +99,19 @@ def test_the_phonemizer_family_is_checked():
     assert {f"ttscube_tpu_torch/{m.replace('.', '/')}.py" for m in PHONEMIZER_MODULES} <= names
 
 
-@pytest.mark.parametrize("module", PHONEMIZER_MODULES)
+def test_the_lm_conditioning_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"ttscube_tpu_torch/{m.replace('.', '/')}.py" for m in LM_MODULES} <= names
+
+
+@pytest.mark.parametrize("module", PHONEMIZER_MODULES + LM_MODULES)
 def test_imports_with_the_missing_packages_blocked(module):
-    """Each module of the phonemizer family imports in a fresh interpreter where jax,
-    flax, optax, yaml, msgpack, transformers, tokenizers and ttscube_tpu cannot be
-    imported (None in sys.modules makes an import raise)."""
+    """Each module of the phonemizer family and of LM conditioning imports in a fresh
+    interpreter where jax, flax, optax, yaml, msgpack, transformers, tokenizers,
+    safetensors and ttscube_tpu cannot be imported (None in sys.modules makes an import
+    raise)."""
     blocked = ["jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "transformers",
-               "tokenizers", "ttscube_tpu"]
+               "tokenizers", "safetensors", "ttscube_tpu"]
     code = ("import sys\n" + "".join(f"sys.modules[{b!r}] = None\n" for b in blocked)
             + f"import ttscube_tpu_torch.{module}\n"
             + "assert not any(m.split('.')[0] in %r for m in sys.modules if sys.modules[m])\n"

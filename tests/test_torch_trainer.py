@@ -412,8 +412,12 @@ def test_cli_trains_two_steps_on_the_cpu(tmp_path, corpus, monkeypatch):
                            torch.device("cpu"))
     assert resumed.model.config == state.model.config and resumed.step == 2
     assert cli.main(args + ["--resume", "--max-epochs", "0"]) == 2
-    # --lm is refused; the mesh flags train (tests/test_torch_mesh.py)
-    with pytest.raises(NotImplementedError, match="A11.2"):
+    # --lm trains (tests/test_torch_lm_serve.py); a spec of no known kind stops the run,
+    # and so does a fastText table that is not there; the mesh flags train
+    # (tests/test_torch_mesh.py)
+    with pytest.raises(SystemExit, match="unknown --lm spec"):
+        cli.main(args + ["--lm", "bogus:en"])
+    with pytest.raises(FileNotFoundError):
         cli.main(args + ["--lm", "fasttext:en"])
     # bf16 trains (tests/test_torch_bf16_train.py); with the fp32-only fused tail it is
     # refused when the flags are parsed

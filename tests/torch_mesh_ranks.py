@@ -30,15 +30,20 @@ def _full(t):
     return (t.full_tensor() if isinstance(t, DTensor) else t).detach().cpu().numpy().copy()
 
 
-def step_rank(rank, world, device, shape, cfg, params, spectral, batch, starts, steps):
+def step_rank(rank, world, device, shape, cfg, params, spectral, batch, starts, steps,
+              lm=None):
     """`steps` mesh train steps of a Cubegan holding the JAX trees `params` and
-    `spectral`, on the global `batch` with the global crop offsets `starts` (None: drawn
-    by the step). Returns, for each step, its metrics, the grads it reduced (whole, by
-    name) and the parameters after it (whole, by name); and each parameter's placement
-    and its AdamW moments' placements."""
+    `spectral` (and, with `lm` an LMConfig's fields, an HF encoder), on the global
+    `batch` with the global crop offsets `starts` (None: drawn by the step). Returns,
+    for each step, its metrics, the grads it reduced (whole, by name) and the
+    parameters after it (whole, by name); and each parameter's placement and its AdamW
+    moments' placements."""
+    from ttscube_tpu_torch.models.lm import LMConfig
+
     with EXACT:
         mesh = pm.make_mesh(*shape, device=device)
-        model = load_jax_params(tcg.Cubegan(config(*cfg), train=True), params,
+        model = load_jax_params(tcg.Cubegan(config(*cfg), train=True, lm_config=None if
+                                            lm is None else LMConfig(**lm)), params,
                                 {"msd": spectral})
         step = pm.make_parallel_train_step(model, mesh, tcg.train_step)
         state = tcg.create_train_state(model)

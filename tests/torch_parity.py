@@ -136,6 +136,8 @@ def random_params(module, *example, seed: int):
         name = jax.tree_util.keystr(path)
         if name.endswith("['g']"):
             return np.ones(x.shape, np.float32)
+        if name.endswith("['scale']"):  # a LayerNorm's
+            return (1.0 + 0.1 * rng.standard_normal(x.shape)).astype(np.float32)
         if name.endswith("['bias']") or name.endswith("['b']") or "['b_l" in name:
             return (0.05 * rng.standard_normal(x.shape)).astype(np.float32)
         scale = 1.0 if name.endswith("['embedding']") else 1.0 / np.sqrt(
@@ -243,16 +245,21 @@ def toy_train_batch(B=2, N=16, F=60, seed=0):
             "n_frames": np.asarray(fmask, np.int32).sum(axis=1).astype(np.int32)}
 
 
-def train_pair(hifi: dict, batch: dict, seed: int):
+def train_pair(hifi: dict, batch: dict, seed: int, lang: dict = TRAIN_LANG,
+               lm: dict | None = None):
     """A JAX Cubegan and TrainState with seeded random parameters and spectral u (no
     flax init: shapes from `jax.eval_shape`), and the port's Cubegan(train=True) holding
-    the same parameters and u."""
+    the same parameters and u. `lang` is the LanguasitoConfig's fields; `lm`, where
+    given, an LMConfig's: both models then hold an HF encoder (`hf`)."""
     from ttscube_tpu.models import cubegan as jcg
+    from ttscube_tpu.models import lm as jlm
     from ttscube_tpu_torch.models import cubegan as tcg
+    from ttscube_tpu_torch.models import lm as tlm
 
-    jcfg = jcg.CubeganConfig(languasito=jla.LanguasitoConfig(**TRAIN_LANG),
+    jcfg = jcg.CubeganConfig(languasito=jla.LanguasitoConfig(**lang),
                              hifigan=jhg.HifiganConfig(**hifi), **TRAIN_DISC)
-    jm = jcg.Cubegan(jcfg)
+    jm = jcg.Cubegan(jcfg, lm=None if lm is None else jlm.TransformerEncoder(
+        jlm.LMConfig(**lm)))
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), batch)
     rng = np.random.default_rng(seed)
 
@@ -260,6 +267,8 @@ def train_pair(hifi: dict, batch: dict, seed: int):
         name = jax.tree_util.keystr(path)
         if name.endswith("['g']"):
             return np.ones(x.shape, np.float32)
+        if name.endswith("['scale']"):  # a LayerNorm's
+            return (1.0 + 0.1 * rng.standard_normal(x.shape)).astype(np.float32)
         if name.endswith("['u']"):
             return rng.standard_normal(x.shape).astype(np.float32)
         if name.endswith("['bias']") or "['b_l" in name:
@@ -273,9 +282,10 @@ def train_pair(hifi: dict, batch: dict, seed: int):
     jstate = jcg.TrainState(params=params,
                             opt_state={k: tx.init(params) for k, tx in txs.items()},
                             spectral=spectral, step=jnp.zeros((), jnp.int32))
-    tcfg = tcg.CubeganConfig(languasito=tla.LanguasitoConfig(**TRAIN_LANG),
+    tcfg = tcg.CubeganConfig(languasito=tla.LanguasitoConfig(**lang),
                              hifigan=thg.HifiganConfig(**hifi), **TRAIN_DISC)
-    tm = load_jax_params(tcg.Cubegan(tcfg, train=True), params, {"msd": spectral})
+    tm = load_jax_params(tcg.Cubegan(tcfg, train=True, lm_config=None if lm is None else
+                                     tlm.LMConfig(**lm)), params, {"msd": spectral})
     return jm, jstate, tm
 
 

@@ -20,21 +20,31 @@ the phonemizer's kernels at each range of text lengths.
 `.encodings`, flax msgpack `.model`) with the port's own readers
 (`utils/config_io.py`, `utils/serialization.py`), so it needs neither yaml nor msgpack;
 `TTSCube.from_state_dicts` builds the same object from configs and state dicts.
+
+LM-conditioned voices, as in the JAX class: the yaml's `conditioning` spec names the
+kind. A fastText voice reads its word vectors from `<model>.wordvec.npz` (export_model
+`--wordvec`); an HF voice builds its encoder from the yaml's `lm_config`, loads it from
+the `.model` file's `hf` subtree, and tokenizes each request's words with the tokenizer
+of `<model>.hf/` or of the spec's directory (`utils/hfcond.py`). Its warmup also runs the
+encoder at each token window a request can reach.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from ttscube_tpu_torch import resolve_device
 from ttscube_tpu_torch.convert import load_jax_params, read_msgpack
-from ttscube_tpu_torch.data.collate import CubeganCollate
+from ttscube_tpu_torch.data.collate import HF_MAX_TOKENS, CubeganCollate
 from ttscube_tpu_torch.data.encodings import CubeganEncodings, PhonemizerEncodings
 from ttscube_tpu_torch.data.text import Text2FeatBlizzard
-from ttscube_tpu_torch.models.cubegan import Cubegan, CubeganConfig
+from ttscube_tpu_torch.models.cubegan import Cubegan, CubeganConfig, batch_to_torch
 from ttscube_tpu_torch.models.hifigan import HifiganConfig
 from ttscube_tpu_torch.models.languasito import LanguasitoConfig
+from ttscube_tpu_torch.models.lm import LMConfig
 from ttscube_tpu_torch.models.phonemizer import Phonemizer, PhonemizerConfig
 from ttscube_tpu_torch.utils import config_io
 
@@ -52,8 +62,8 @@ def config_from_yaml(conf: dict, encodings: CubeganEncodings) -> CubeganConfig:
     serving defaults (fused tail, bf16 storage) unless the yaml opts out. The hifigan
     keys in `IGNORED_HIFIGAN_KEYS` are accepted and dropped."""
     cond_type = conf.get("conditioning")
-    if cond_type:
-        raise NotImplementedError("LM-conditioned models are not ported yet")
+    cond_type = cond_type.split(":")[0] if cond_type else None
+    lm_config = lm_config_from_yaml(conf)
     hifi = {k: (tuple(tuple(x) if isinstance(x, list) else x for x in v)
                 if isinstance(v, list) else v)
             for k, v in (conf.get("hifigan") or {}).items()
@@ -63,10 +73,38 @@ def config_from_yaml(conf: dict, encodings: CubeganEncodings) -> CubeganConfig:
     return CubeganConfig(
         languasito=LanguasitoConfig(
             num_phones=len(encodings.phon2int), num_speakers=len(encodings.speaker2int),
-            max_pitch=encodings.max_pitch, max_duration=encodings.max_duration),
+            max_pitch=encodings.max_pitch, max_duration=encodings.max_duration,
+            cond_type=cond_type,
+            lm_dim=lm_config.hidden_size if lm_config is not None else None),
         hifigan=HifiganConfig(**hifi),
         sample_rate=conf.get("sample_rate", 24000),
         hop_size=conf.get("hop_size", 240))
+
+
+def lm_config_from_yaml(conf: dict) -> LMConfig | None:
+    """The HF encoder's config of an HF-conditioned checkpoint (its yaml's `lm_config`),
+    else None."""
+    spec = conf.get("conditioning") or ""
+    return LMConfig(**conf["lm_config"]) if spec.split(":")[0] == "hf" else None
+
+
+def conditioning_frontends(model_path: str, cond_type) -> tuple:
+    """(word_embedder, hf_frontend) of a voice: the word vectors of a fastText voice,
+    `<model_path>.wordvec.npz`; the tokenizer front end of an HF voice."""
+    if cond_type == "fasttext":
+        from ttscube_tpu_torch.utils.wordvec import WordVectors
+
+        wv_path = model_path + ".wordvec.npz"
+        if not os.path.exists(wv_path):
+            raise FileNotFoundError(
+                f"model is fasttext-conditioned but '{wv_path}' is missing — "
+                "re-export with scripts/export_model.py --wordvec <table>")
+        return WordVectors.load_npz(wv_path), None
+    if cond_type == "hf":
+        from ttscube_tpu_torch.utils.hfcond import HFCondFrontend
+
+        return None, HFCondFrontend.from_packaged(model_path)
+    return None, None
 
 
 def phonemizer_config(penc: PhonemizerEncodings) -> PhonemizerConfig:
@@ -77,19 +115,23 @@ def phonemizer_config(penc: PhonemizerEncodings) -> PhonemizerConfig:
 class TTSCube:
     def __init__(self, model_path: str, phonemizer_path: str, device=None):
         encodings = CubeganEncodings(model_path + ".encodings")
-        config = config_from_yaml(config_io.load(model_path + ".yaml") or {}, encodings)
+        conf = config_io.load(model_path + ".yaml") or {}
+        config = config_from_yaml(conf, encodings)
         penc = PhonemizerEncodings(phonemizer_path + ".encodings")
         tree = read_msgpack(model_path + ".model")
-        model = load_jax_params(Cubegan(config), {"lang": tree["lang"], "gen": tree["gen"]})
+        model = load_jax_params(Cubegan(config, lm_config=lm_config_from_yaml(conf)),
+                                {k: tree[k] for k in ("lang", "gen", "hf") if k in tree})
         pmodel = load_jax_params(Phonemizer(phonemizer_config(penc)),
                                  read_msgpack(phonemizer_path + ".model"))
-        self._setup(config, encodings, penc, model, pmodel, device)
+        self._setup(config, encodings, penc, model, pmodel, device,
+                    *conditioning_frontends(model_path, config.languasito.cond_type))
 
     @classmethod
     def from_state_dicts(cls, config: CubeganConfig, encodings: CubeganEncodings,
                          phonemizer_encodings: PhonemizerEncodings, model_state: dict,
                          phonemizer_state: dict, device=None) -> "TTSCube":
-        """Build from configs and state dicts of `Cubegan` and `Phonemizer`."""
+        """Build from configs and state dicts of `Cubegan` and `Phonemizer` (a voice
+        without LM conditioning)."""
         model = Cubegan(config)
         model.load_state_dict(model_state, strict=True)
         pmodel = Phonemizer(phonemizer_config(phonemizer_encodings))
@@ -98,30 +140,39 @@ class TTSCube:
         self._setup(config, encodings, phonemizer_encodings, model, pmodel, device)
         return self
 
-    def _setup(self, config, encodings, penc, model, pmodel, device):
+    def _setup(self, config, encodings, penc, model, pmodel, device, word_embedder=None,
+               hf_frontend=None):
         self.device = resolve_device(device)
         self.config = config
         self.encodings = encodings
         self.model = model.to(self.device).eval()
         pmodel.to(self.device).eval()
         self.text2feat = Text2FeatBlizzard(penc, pmodel, self.device)
+        self.hf_frontend = hf_frontend
         # the word axis is bucketed as in the JAX API, so both see the same inputs
-        self.collate = CubeganCollate(encodings, hop=config.hop_size, bucket_words=8)
+        self.collate = CubeganCollate(encodings, word_embedder=word_embedder,
+                                      hop=config.hop_size,
+                                      hf_conditioning=hf_frontend is not None,
+                                      bucket_words=8)
 
     def _prepare(self, text: str, speaker: str) -> dict:
-        """text → phonemize → collate → the model's input tensors on the device."""
+        """text → phonemize → collate → the model's input tensors on the device (every
+        `x_` array of the collate: with LM conditioning `x_words`, or the token window
+        `x_tok_ids`, `x_tok_mask`, `x_word2tok`)."""
         meta = self.text2feat(text)
         meta["speaker"] = speaker
         meta["frame2phon"] = [0]  # placeholder; free synthesis predicts durations
+        if self.hf_frontend is not None:
+            meta = self.hf_frontend(meta)
         example = {"meta": meta, "mgc": np.zeros((8, 80), np.float32),
                    "pitch": np.zeros((8,), np.float32)}
         X = self.collate([example])
-        return {k: torch.from_numpy(np.asarray(v, np.int64)).to(self.device)
-                for k, v in X.items() if k in ("x_char", "x_speaker", "x_phon2word")}
+        return batch_to_torch({k: v for k, v in X.items() if k.startswith("x_")},
+                              self.device)
 
     @torch.inference_mode()
     def _frames(self, X) -> int:
-        total = int(self.model.lang.durations(X).sum().item())
+        total = int(self.model.durations(X).sum().item())
         return max(total, 1)  # all-unknown phones predict 0 frames: one frame of silence
 
     def frames(self, text: str, speaker: str = "none") -> int:
@@ -153,7 +204,9 @@ class TTSCube:
         frame bucket in `frame_buckets`: the real text → phonemizer → collate path, as
         the JAX TTSCube.warmup does, the duration pass, synthesis, and the audio's copy
         to the host and its int16 conversion; then the phonemizer alone on texts of 2,
-        4, ..., 512 characters (`_warm_phonemizer`). A server calls it once at start-up."""
+        4, ..., 512 characters (`_warm_phonemizer`), and an HF voice's encoder at each
+        token window the collate can give a request (`_warm_lm`). A server calls it once
+        at start-up."""
         for n in char_lens:
             # about n characters of short words: the aligned phonemizer maps characters
             # about one to one, so the phone axis lands near the n-phone collate bucket
@@ -164,6 +217,18 @@ class TTSCube:
                 audio, _ = self.model.infer(X, max_frames=b)
                 self._int16(self._to_host(audio, min(total, b)))
         self._warm_phonemizer()
+        self._warm_lm()
+
+    def _warm_lm(self) -> None:
+        """The HF encoder alone on one window of each token bucket up to
+        HF_MAX_TOKENS: cuBLAS picks its kernels by shape, and CUDA loads a kernel's
+        module at its first launch."""
+        if not hasattr(self.model, "hf"):
+            return
+        step = self.collate.bucket_tokens
+        for n in range(step, HF_MAX_TOKENS + 1, step):
+            ids = torch.ones(1, n, dtype=torch.int64, device=self.device)
+            self.model.hf(ids, torch.ones(1, n, dtype=torch.bool, device=self.device))
 
     def _warm_phonemizer(self, longest: int = 512) -> None:
         """The phonemizer alone on one text of each power of two characters up to

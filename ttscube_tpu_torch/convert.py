@@ -9,6 +9,7 @@ pairs each leaf module with its subtree and applies the layout rules:
   * SNConv1d u: the JAX "spectral" collection ↔ the module's buffer `u`
   * WNConvTranspose1d v: (k, out, in) ↔ (in, out, k); its g is per input channel
   * Dense kernel: (in, out) ↔ Linear weight (out, in)
+  * LayerNorm: flax {scale, bias} ↔ torch {weight, bias}
   * LSTM, LSTMCell: wi/wh (D, 4H) ↔ weight_ih/weight_hh (4H, D); the single bias b
     goes to bias_ih with bias_hh = 0, and comes back as bias_ih + bias_hh
   * g, bias, embeddings, and a parameter a non-leaf module holds itself (the
@@ -32,7 +33,7 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from ttscube_tpu_torch.models.languasito import MaskedEmbed
 from ttscube_tpu_torch.ops.conv import (Conv1d, SNConv1d, WNConv1d, WNConv2d,
                                         WNConvTranspose1d)
-from ttscube_tpu_torch.ops.linear import Dense, Embed
+from ttscube_tpu_torch.ops.linear import Dense, Embed, LayerNorm
 from ttscube_tpu_torch.ops.rnn import LSTM, LSTMCell
 from ttscube_tpu_torch.utils.serialization import msgpack_restore
 
@@ -54,6 +55,8 @@ def leaf_layout(mod: nn.Module) -> dict:
         out = {"weight": ("kernel", (1, 0))}
     elif isinstance(mod, Embed):
         return {"weight": ("embedding", None)}
+    elif isinstance(mod, LayerNorm):
+        return {"weight": ("scale", None), "bias": ("bias", None)}
     elif isinstance(mod, MaskedEmbed):
         return {"embedding": ("embedding", None)}
     elif isinstance(mod, LSTM):
@@ -104,7 +107,7 @@ def _leaf_to_jax(mod: nn.Module, sd: dict) -> dict:
 
 
 _LEAVES = (Conv1d, SNConv1d, WNConv1d, WNConv2d, WNConvTranspose1d, Dense, Embed,
-           MaskedEmbed, LSTM, LSTMCell)
+           LayerNorm, MaskedEmbed, LSTM, LSTMCell)
 
 
 def jax_to_state_dict(module: nn.Module, tree: dict, spectral: dict | None = None) -> dict:

@@ -3,9 +3,10 @@
 `batch_iterator`.
 
 A corpus folder holds per-utterance `{id}.{mgc,pitch,json,wav}` files, as the JAX
-package's importers write them; the phonemizer's data is one JSON list per split. Not
-ported: the HF tokenizer's pre-tokenisation (`hf_tokenizer`, with LM conditioning) and
-`VocoderDataset`.
+package's importers write them; the phonemizer's data is one JSON list per split. With
+an HF tokenizer (`hf_tokenizer`, for HF conditioning) each example's words and its left
+and right context are pre-tokenized, and an example whose token windows cannot be used
+is dropped (`_hf_example_valid`). Not ported: `VocoderDataset`.
 """
 
 from __future__ import annotations
@@ -17,16 +18,31 @@ from os.path import join
 
 import numpy as np
 
+from ttscube_tpu_torch.data.collate import HF_MAX_TOKENS
 from ttscube_tpu_torch.data.text import SimpleTokenizer
 from ttscube_tpu_torch.utils.wavio import read_wav
 
 MAX_PHONE_FRAMES = 400  # drop utterances with any phone longer than this
 
 
+def _hf_example_valid(example: dict) -> bool:
+    """Each of the three token windows under HF_MAX_TOKENS tokens, and every word2tok
+    entry inside its token list."""
+    for key in ("words_hf", "words_left_hf", "words_right_hf"):
+        part = example[key]
+        if len(part["tok_ids"]) >= HF_MAX_TOKENS:
+            return False
+        for w, t in part["word2tok"].items():
+            if t < 0 or t >= len(part["tok_ids"]):
+                return False
+    return True
+
+
 class CubeganDataset:
     """Scans a folder of per-utterance {id}.{mgc,pitch,json,wav} artifacts."""
 
-    def __init__(self, base_path: str, hop_size: int = 240, sample_rate: int = 24000):
+    def __init__(self, base_path: str, hf_tokenizer=None, hop_size: int = 240,
+                 sample_rate: int = 24000):
         self._hop = hop_size
         self._sr = sample_rate
         self._base_path = base_path
@@ -49,6 +65,12 @@ class CubeganDataset:
                 continue
             example["words_left"] = [t.word for t in tok(example.get("left_context", ""))]
             example["words_right"] = [t.word for t in tok(example.get("right_context", ""))]
+            if hf_tokenizer is not None:
+                example["words_hf"] = hf_tokenizer(example["words"])
+                example["words_left_hf"] = hf_tokenizer(example["words_left"])
+                example["words_right_hf"] = hf_tokenizer(example["words_right"])
+                if not _hf_example_valid(example):
+                    continue
             self._examples.append(example)
 
     def __len__(self):

@@ -23,8 +23,13 @@ generator's convs (conv_post excepted) and `disc_compute_dtype="bfloat16"` the
 discriminators' convs with bf16 operands, each result rounded once to bf16 and then
 fp32 (`ops/conv.py`); weights, grads and the AdamW moments stay fp32. The fused tail's
 backward (B2) has no bf16 form in either package, so `fused_tail_train` with bf16
-raises where the JAX module warns and runs the plain path. LM conditioning is not
-ported yet.
+raises where the JAX module warns and runs the plain path.
+
+HF conditioning, as in the JAX module: `Cubegan(config, lm_config=...)` holds the
+transformer encoder as `hf` (the JAX tree's `params["hf"]`, the `b` partition), and
+`lm_condition` turns the batch's token window into `x_words` before the text model runs,
+in `forward`, `infer`, `durations` and `gan_forward`. fastText conditioning needs no
+module here: the collate puts the table's vectors in `x_words`.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ttscube_tpu_torch.models.hifigan import (_DTYPES, Generator, HifiganConfig,
                                               generator_loss)
 from ttscube_tpu_torch.models.languasito import (Languasito2, LanguasitoConfig,
                                                  languasito_losses)
+from ttscube_tpu_torch.models.lm import LMConfig, TransformerEncoder
 
 TRAIN_FRAMES = 50   # 12,000-sample GAN window
 VAL_FRAMES = 200    # 48,000-sample validation window
@@ -91,7 +97,8 @@ def _frozen(*modules):
 
 
 def batch_to_torch(batch: dict, device) -> dict:
-    """A collated numpy batch as tensors on `device`: ints as int64, floats as fp32."""
+    """A collated numpy batch as tensors on `device`: bools as bool (`x_tok_mask`), ints
+    as int64, floats as fp32 (`x_words` among them)."""
     out = {}
     for k, v in batch.items():
         a = np.asarray(v)
@@ -103,14 +110,18 @@ def batch_to_torch(batch: dict, device) -> dict:
 
 class Cubegan(nn.Module):
     """Text model (`lang`) and generator (`gen`), plus with `train=True` the
-    discriminators (`mpd`, `msd`) and the GAN mel; the parameter names mirror the JAX
-    tree {"lang", "gen", "mpd", "msd"}."""
+    discriminators (`mpd`, `msd`) and the GAN mel, and with `lm_config` the HF
+    conditioning encoder (`hf`); the parameter names mirror the JAX tree {"lang",
+    "gen", "mpd", "msd", "hf"}."""
 
-    def __init__(self, config: CubeganConfig, train: bool = False):
+    def __init__(self, config: CubeganConfig, train: bool = False,
+                 lm_config: LMConfig | None = None):
         super().__init__()
         self.config = config
         self.lang = Languasito2(config.languasito)
         self.gen = Generator(config.hifigan)
+        if lm_config is not None:
+            self.hf = TransformerEncoder(lm_config)
         self.train_mode = train
         if train:
             check_fused_tail_train(config.hifigan)
@@ -124,12 +135,30 @@ class Cubegan(nn.Module):
         FSDP2 gathers its weights into tensors that must keep a version counter."""
         return torch.no_grad() if isinstance(self, FSDPModule) else torch.inference_mode()
 
+    def lm_condition(self, X):
+        """`X` with `x_words` from the HF encoder: its last hidden state over the token
+        window `x_tok_ids` (mask `x_tok_mask`), a zero row put before it, gathered per
+        word by `x_word2tok` (a token position + 1; 0 for a missing or padded word). `X`
+        itself without an encoder or a token window."""
+        if not hasattr(self, "hf") or "x_tok_ids" not in X:
+            return X
+        hidden = self.hf(X["x_tok_ids"], X.get("x_tok_mask"))
+        hidden = torch.cat([hidden.new_zeros(hidden.shape[0], 1, hidden.shape[2]), hidden], 1)
+        idx = X["x_word2tok"].long()[:, :, None].expand(-1, -1, hidden.shape[2])
+        return dict(X, x_words=torch.gather(hidden, 1, idx))
+
     def forward(self, X):
         """Teacher-forced synthesis: the generator on the conditioning the text model
         builds from the batch's own alignment and pitch. Returns audio (B, frames·hop)."""
         with self._no_autograd():
-            _, _, _, cond = self.lang(X)
+            _, _, _, cond = self.lang(self.lm_condition(X))
             return self.gen(cond)
+
+    def durations(self, X):
+        """The duration pass: predicted per-phone durations (B, N), zero on padded
+        phones."""
+        with self._no_autograd():
+            return self.lang.durations(self.lm_condition(X))
 
     def infer(self, X, max_frames: int, chunk_frames: int | None = None):
         """Free synthesis: (audio (B, max_frames·hop) fp32, aux dict). With
@@ -137,7 +166,7 @@ class Cubegan(nn.Module):
         on each side, one after another (`generate_chunked`), which bounds its memory
         for long utterances and large batches; None runs the whole utterance at once."""
         with self._no_autograd():
-            cond, aux = self.lang.infer(X, max_frames)
+            cond, aux = self.lang.infer(self.lm_condition(X), max_frames)
             h = self.config.hifigan
             gen = self.gen.fused if h.fused_tail else self.gen
             if chunk_frames is not None:
@@ -169,7 +198,7 @@ class Cubegan(nn.Module):
         the cropped real audio. Window starts come from `starts` or are drawn from
         `generator`."""
         h = self.config.hifigan
-        dur_logits, pitch, vuv, cond = self.lang(batch)
+        dur_logits, pitch, vuv, cond = self.lang(self.lm_condition(batch))
         window = min(window, cond.shape[1])
         if starts is None:
             starts = self.crop_starts(batch["n_frames"], window, generator)

@@ -1,7 +1,12 @@
 """Languasito2, counterpart of `ttscube_tpu/models/languasito.py`: the two-tower text
 encoder that predicts durations, pitch and VUV and builds the 80-d frame-level
-conditioning for the generator. LM conditioning (`cond_type` "fasttext"/"hf") is not
-ported yet; the config accepts `cond_type=None` only."""
+conditioning for the generator.
+
+With LM conditioning (`cond_type` "fasttext" or "hf") each tower also runs a BiLSTM
+(`lm`, 2 layers of 256) over the word vectors `x_words` (B, W, lm_input_dim), gathers
+its output per phone by `x_phon2word` and appends it after the speaker embedding, as the
+JAX `_Tower` does. `x_words` comes from the collate (fastText) or from
+`Cubegan.lm_condition` (the HF encoder's hidden state per word)."""
 
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ PITCH_RNN_LAYERS = 2
 COND_RNN_SIZE = 64
 COND_RNN_LAYERS = 2
 COND_SIZE = 80
+EXTERNAL_COND = 512  # 2 × 256 BiLSTM over the LM word vectors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +44,14 @@ class LanguasitoConfig:
     num_speakers: int
     max_pitch: float
     max_duration: int
-    cond_type: Optional[str] = None  # LM conditioning: only None is ported
+    cond_type: Optional[str] = None  # None | "fasttext" | "hf"
+    lm_dim: Optional[int] = None  # the x_words feature size, where it is not the default
+
+    @property
+    def lm_input_dim(self) -> int:
+        if self.lm_dim is not None:
+            return self.lm_dim
+        return {"fasttext": 300, "hf": 768}.get(self.cond_type, 0)
 
 
 class MaskedEmbed(nn.Module):
@@ -58,12 +71,11 @@ class MaskedEmbed(nn.Module):
 
 
 class _Tower(nn.Module):
-    """Phone embedding → char CNN → char BiLSTM, concatenated with the speaker embedding."""
+    """Phone embedding → char CNN → char BiLSTM, concatenated with the speaker embedding
+    and, with LM conditioning, the word BiLSTM's output gathered per phone."""
 
     def __init__(self, c: LanguasitoConfig):
         super().__init__()
-        if c.cond_type is not None:
-            raise NotImplementedError("LM conditioning is not ported yet")
         self.phon_emb = MaskedEmbed(c.num_phones + 1, PHON_EMB_SIZE)
         self.speaker_emb = MaskedEmbed(c.num_speakers + 1, SPEAKER_EMB_SIZE)
         for i in range(CHAR_CNN_NL):
@@ -72,14 +84,22 @@ class _Tower(nn.Module):
                 w_init_gain="tanh"))
         self.char_rnn = LSTM(CHAR_CNN_SIZE, CHAR_RNN_SIZE, num_layers=CHAR_RNN_NL,
                              bidirectional=True)
+        if c.cond_type is not None:
+            self.lm = LSTM(c.lm_input_dim, EXTERNAL_COND // 2, num_layers=2,
+                           bidirectional=True)
 
-    def forward(self, x_char, x_speaker):
+    def forward(self, x_char, x_speaker, x_words=None, x_phon2word=None):
         h = self.phon_emb(x_char)
         for i in range(CHAR_CNN_NL):
             h = torch.tanh(getattr(self, f"char_cnn_{i}")(h))
         h, _ = self.char_rnn(h)
         spk = self.speaker_emb(x_speaker).expand(h.shape[0], h.shape[1], SPEAKER_EMB_SIZE)
-        return torch.cat([h, spk], dim=-1)
+        parts = [h, spk]
+        if hasattr(self, "lm"):
+            cond, _ = self.lm(x_words)
+            idx = x_phon2word.long()[:, :, None].expand(-1, -1, cond.shape[-1])
+            parts.append(torch.gather(cond, 1, idx))  # the word of each phone
+        return torch.cat(parts, dim=-1)
 
 
 class Languasito2(nn.Module):
@@ -89,7 +109,8 @@ class Languasito2(nn.Module):
     def __init__(self, config: LanguasitoConfig):
         super().__init__()
         c = self.config = config
-        tower_out = 2 * CHAR_RNN_SIZE + SPEAKER_EMB_SIZE
+        tower_out = 2 * CHAR_RNN_SIZE + SPEAKER_EMB_SIZE + (
+            EXTERNAL_COND if c.cond_type is not None else 0)
         self.tower_t = _Tower(c)
         self.tower_g = _Tower(c)
         self.dur_rnn = LSTM(tower_out, DUR_RNN_SIZE, num_layers=DUR_RNN_LAYERS,
@@ -102,16 +123,20 @@ class Languasito2(nn.Module):
                              bidirectional=True)
         self.cond_output = Dense(2 * COND_RNN_SIZE, COND_SIZE)
 
+    @staticmethod
+    def _tower(tower, X):
+        return tower(X["x_char"], X["x_speaker"], X.get("x_words"), X.get("x_phon2word"))
+
     def text_forward(self, X, frame2phone):
         """Phone-level duration logits; frame-level pitch and VUV."""
-        h = self.tower_t(X["x_char"], X["x_speaker"])
+        h = self._tower(self.tower_t, X)
         dur_logits = self.dur_output(self.dur_rnn(h)[0])
         po = self.pitch_output(self.pitch_rnn(regulate_length(h, frame2phone))[0])
         return dur_logits, torch.sigmoid(po[:, :, 0]), torch.sigmoid(po[:, :, 1])
 
     def cond_forward(self, X, frame2phone, pitch):
         """Frame-level 80-d conditioning."""
-        h = self.tower_g(X["x_char"], X["x_speaker"])
+        h = self._tower(self.tower_g, X)
         hf = regulate_length(h, frame2phone)
         hf = torch.cat([hf, (pitch / self.config.max_pitch)[:, :, None]], dim=-1)
         return self.cond_output(self.cond_rnn(hf)[0])
@@ -128,12 +153,12 @@ class Languasito2(nn.Module):
 
     def durations(self, X):
         """Predicted per-phone durations (B, N), zero on padded phones."""
-        return self._durations(X, self.tower_t(X["x_char"], X["x_speaker"]))
+        return self._durations(X, self._tower(self.tower_t, X))
 
     def infer(self, X, max_frames: int):
         """Free synthesis: predict durations, expand, predict pitch (VUV rounded to 0/1,
         pitch scaled by max_pitch and masked by VUV), build the conditioning."""
-        h_t = self.tower_t(X["x_char"], X["x_speaker"])
+        h_t = self._tower(self.tower_t, X)
         durs = self._durations(X, h_t)
         frame2phone, frame_mask = durations_to_frame2phone(
             durs, (X["x_char"] != 0).sum(dim=-1), max_frames)

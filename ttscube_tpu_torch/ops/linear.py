@@ -27,3 +27,17 @@ class Dense(nn.Linear):
         with torch.no_grad():
             self.weight.uniform_(-a, a, generator=gen)
             self.bias.zero_()
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax `nn.LayerNorm` over the last axis: scale (`weight`) and bias. flax takes the
+    variance as E[x²] − E[x]², PyTorch in two passes: the two differ by a few fp32
+    roundings (tests/test_torch_lm.py)."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__(features, eps=eps)
+
+    def init_weights(self, gen: torch.Generator):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()

@@ -193,8 +193,8 @@ def _keep_rnn_weights() -> None:
 
 
 def shard_model(model: torch.nn.Module, mesh: DeviceMesh) -> torch.nn.Module:
-    """Shard a Cubegan over `mesh` in place (FSDP2): `lang`, `gen`, `mpd` and `msd` (those
-    it has) each as one unit, then the root; each parameter on its `partition_params`
+    """Shard a Cubegan over `mesh` in place (FSDP2): `lang`, `gen`, `mpd`, `msd` and the
+    HF encoder `hf` (those it has) each as one unit, then the root; each parameter on its `partition_params`
     axis over 'model' and replicated over 'data'. The buffers (the MSD's spectral u,
     the mel filters) stay whole on every rank. A model sharded already is left as it
     is. The LSTMs keep their weights where FSDP2 puts them (`_keep_rnn_weights`).
@@ -214,7 +214,7 @@ def shard_model(model: torch.nn.Module, mesh: DeviceMesh) -> torch.nn.Module:
     for mod in model.modules():
         if isinstance(mod, torch.nn.RNNBase):
             mod.flatten_parameters = _keep_rnn_weights
-    for name in ("lang", "gen", "mpd", "msd"):
+    for name in ("lang", "gen", "mpd", "msd", "hf"):
         if hasattr(model, name):
             fully_shard(getattr(model, name), mesh=mesh, shard_placement_fn=placement)
     fully_shard(model, mesh=mesh, shard_placement_fn=placement)

@@ -9,8 +9,13 @@ Keeps the text model and the generator of `{input-model}.last` as `{input-model}
 the phonemizer weights load into the aligned Phonemizer that TTSCube builds, tars
 cubegan.{model,yaml,encodings} and phonemizer.{model,encodings}, splits the archive into
 49 MB volumes `{output-model}-NN`, and writes the descriptor `{output-model}.yaml`
-(`utils/config_io.py`). Conditioned models (fastText or HF, in the model's yaml) need LM
-conditioning, which is not ported yet (ROADMAP.md A11.2), and raise.
+(`utils/config_io.py`).
+
+LM-conditioned models (the model yaml's `conditioning`), as the JAX exporter packs them:
+a fastText model needs `--wordvec` (a `.vec`, written as `{input-model}.wordvec.npz`,
+or an `.npz` as it is), packed as cubegan.wordvec.npz; an HF model's tokenizer and
+config files (not its weight files) from the spec's directory go in as `cubegan.hf/`,
+and its encoder travels in cubegan.model (the `hf` subtree).
 """
 
 import os
@@ -47,8 +52,8 @@ def parser() -> ArgumentParser:
                    help="which phonemizer checkpoint to package (default sacc.best)")
     p.add_argument("--output-model", dest="output_model", required=True)
     p.add_argument("--wordvec", dest="wordvec", default=None,
-                   help="word-vector table of a fastText-conditioned model (not ported "
-                        "yet: A11.2)")
+                   help="word-vector table (.vec/.npz) to package for "
+                        "fasttext-conditioned models")
     p.add_argument("--version", dest="version", default="1.0.0")
     p.add_argument("--language", dest="language", default="multi")
     p.add_argument("--description", dest="description", default="")
@@ -63,10 +68,6 @@ def main(argv=None) -> int:
     from ttscube_tpu_torch.utils.serialization import msgpack_serialize, sorted_maps
 
     args = parser().parse_args(argv)
-    conditioning = (config_io.load(args.input_model + ".yaml") or {}).get("conditioning")
-    if conditioning:
-        raise NotImplementedError(f"a model conditioned on {conditioning} is not ported "
-                                  "yet (ROADMAP.md A11.2: HF and fastText conditioning)")
 
     sys.stdout.write("Loading model and removing discriminators... ")
     state = read_msgpack(args.input_model + ".last")
@@ -77,15 +78,42 @@ def main(argv=None) -> int:
 
     _validate_phonemizer(args.input_phonemizer, args.phonemizer_weights)
 
+    # a conditioned model ships what serving needs to make x_words
+    conditioning = (config_io.load(args.input_model + ".yaml") or {}).get("conditioning")
+    wordvec_npz = None
+    if conditioning and conditioning.startswith("fasttext"):
+        if not args.wordvec:
+            raise SystemExit(
+                f"model was trained with conditioning={conditioning}; pass --wordvec "
+                "<table.vec|table.npz> so the API can reproduce x_words at inference")
+        from ttscube_tpu_torch.utils.wordvec import WordVectors
+
+        if args.wordvec.endswith(".npz"):
+            wordvec_npz = args.wordvec
+        else:
+            wordvec_npz = args.input_model + ".wordvec.npz"
+            WordVectors.load_vec(args.wordvec).save_npz(wordvec_npz)
+
     tar_path = args.output_model + ".tar.gz"
     with tarfile.open(tar_path, "w:gz") as tar:
-        for base, ext, out in ((args.input_model, "model", "cubegan.model"),
-                               (args.input_model, "yaml", "cubegan.yaml"),
-                               (args.input_model, "encodings", "cubegan.encodings"),
-                               (args.input_phonemizer, args.phonemizer_weights,
-                                "phonemizer.model"),
-                               (args.input_phonemizer, "encodings", "phonemizer.encodings")):
-            src = f"{base}.{ext}"
+        for ext in ("model", "yaml", "encodings"):
+            src = f"{args.input_model}.{ext}"
+            sys.stdout.write(f"\t{src}\n")
+            tar.add(src, f"cubegan.{ext}")
+        if wordvec_npz is not None:
+            sys.stdout.write(f"\t{wordvec_npz}\n")
+            tar.add(wordvec_npz, "cubegan.wordvec.npz")
+        if conditioning and conditioning.startswith("hf:"):
+            # the tokenizer and config files; the encoder's weights are in cubegan.model
+            hf_dir = conditioning.split(":", 1)[1]
+            for fn in sorted(os.listdir(hf_dir)):
+                if fn.endswith((".bin", ".safetensors", ".h5", ".msgpack", ".ot")):
+                    continue
+                sys.stdout.write(f"\t{os.path.join(hf_dir, fn)}\n")
+                tar.add(os.path.join(hf_dir, fn), f"cubegan.hf/{fn}")
+        for ext, out in ((args.phonemizer_weights, "phonemizer.model"),
+                         ("encodings", "phonemizer.encodings")):
+            src = f"{args.input_phonemizer}.{ext}"
             sys.stdout.write(f"\t{src}\n")
             tar.add(src, out)
 

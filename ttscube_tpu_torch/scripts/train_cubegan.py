@@ -12,8 +12,16 @@ files are the JAX package's: either package resumes the other's run. Training ru
 the card unless `--device cpu`. `--compute-dtype bfloat16` runs the generator's and
 the discriminators' convs with bf16 operands (weights, grads and the optimizer state
 stay fp32); `--fused-tail-train` is fp32 only (its backward kernel, B2, has no bf16
-form), so the two together are refused. Not ported yet: LM conditioning (`--lm`,
-A11.2).
+form), so the two together are refused.
+
+LM conditioning, as in the JAX trainer: `--lm fasttext:<table.vec|table.npz>` feeds the
+table's word vectors to the text towers (the collate's `x_words`); `--lm hf:<dir>`
+trains a BERT encoder inside the model (the `b` partition, Adam at 1e-6) from a local
+HF-format directory: its `tokenizer.json` (`utils/hf.py`), its `config.json` (written
+to the yaml as `lm_config`) and, where there is one, its `pytorch_model.bin` or
+`model.safetensors`, grafted over the random init. Token windows are 512 tokens and the
+word axis is bucketed by 8. No directory, an unreadable tokenizer or config.json, or an
+unknown spec stops the run before it starts.
 
 With `--mesh-data D` and/or `--mesh-model M` it trains over a (D, M) mesh of ranks
 (parallel/mesh.py; the JAX trainer's flags): one rank per card, or with `--device cpu`
@@ -43,7 +51,7 @@ def parser() -> ArgumentParser:
                    help="synthesize the devset every N epochs (0 = never)")
     p.add_argument("--generation-limit", dest="generation_limit", type=int, default=-1)
     p.add_argument("--lm", dest="lm", default=None,
-                   help="conditioning: fasttext:<LANG> or hf:<model> (not ported yet)")
+                   help="conditioning: fasttext:<table.vec|table.npz> or hf:<local dir>")
     p.add_argument("--max-epochs", dest="max_epochs", type=int, default=-1)
     p.add_argument("--max-steps", dest="max_steps", type=int, default=-1)
     p.add_argument("--mesh-data", dest="mesh_data", type=int, default=None,
@@ -91,22 +99,50 @@ def mesh_shape(args):
     return (args.mesh_data or 1, args.mesh_model or 1)
 
 
-def _refuse_unported(args) -> None:
-    if args.lm:
-        raise NotImplementedError(f"--lm {args.lm} is not ported yet (ROADMAP.md A11.2: "
-                                  "HF and fastText conditioning)")
+def lm_setup(spec):
+    """(cond_type, LMConfig, the encoder's imported state dict, HFTokenizer) of an
+    `--lm` spec; Nones where it does not apply. Stops with SystemExit, as the JAX
+    trainer does, on a directory that is not there, a tokenizer or config.json that
+    cannot be read, or an unknown spec; warns where the directory holds no weights."""
+    cond_type = spec.split(":")[0] if spec else None
+    if cond_type == "hf":
+        from ttscube_tpu_torch.models.lm import load_local_lm
+        from ttscube_tpu_torch.utils.hf import HFTokenizer
+
+        hf_dir = spec.split(":", 1)[1]
+        if not os.path.isdir(hf_dir):
+            raise SystemExit(
+                f"--lm hf:<dir>: '{hf_dir}' is not a local model directory. This "
+                "environment has no hub access — place a HF-format BERT checkpoint "
+                "(config.json + tokenizer files [+ pytorch_model.bin]) there first.")
+        try:
+            tokenizer = HFTokenizer(hf_dir)
+        except Exception as e:
+            raise SystemExit(f"--lm hf: could not load a tokenizer from '{hf_dir}': {e}")
+        try:
+            lm_config, lm_state = load_local_lm(hf_dir)
+        except Exception as e:
+            raise SystemExit(f"--lm hf: could not read '{hf_dir}/config.json': {e}")
+        if lm_state is None:
+            sys.stdout.write(f"WARNING: no weights in {hf_dir}; "
+                             "LM encoder starts from random init\n")
+        return cond_type, lm_config, lm_state, tokenizer
+    if spec and cond_type != "fasttext":
+        raise SystemExit(f"unknown --lm spec '{spec}' "
+                         "(expected fasttext:<table> or hf:<dir>)")
+    return cond_type, None, None, None
 
 
 def main(argv=None) -> int:
     """Train as the flags say; returns the final step count (rank 0's on a mesh). A
     caller that needs the final TrainState calls `train_on`."""
     args = parse_args(argv)
-    _refuse_unported(args)
     from ttscube_tpu_torch import resolve_device
 
     shape = mesh_shape(args)
     if shape is None:
         return int(train_on(args, resolve_device(args.device)).step)
+    lm_setup(args.lm)  # fail fast, before any rank starts
     import torch
 
     from ttscube_tpu_torch.parallel.mesh import run_ranks
@@ -137,18 +173,25 @@ def train_on(args, device, mesh=None):
     from ttscube_tpu_torch.utils.ranks import barrier, is_writer
     from ttscube_tpu_torch.utils.checkpoint import save_config
 
-    save_config(args.output_base, {"sample_rate": args.sample_rate,
-                                   "hop_size": args.hop_size, "conditioning": args.lm})
+    from ttscube_tpu_torch.utils.wordvec import make_word_embedder
+
+    cond_type, lm_config, lm_state, hf_tokenizer = lm_setup(args.lm)
+    word_embedder = make_word_embedder(args.lm)
+    config = {"sample_rate": args.sample_rate, "hop_size": args.hop_size,
+              "conditioning": args.lm}
+    if lm_config is not None:
+        config["lm_config"] = lm_config.to_dict()
+    save_config(args.output_base, config)
     barrier()  # rank 0 wrote it
     sys.stdout.write("=================Config=================\n")
     with open(args.output_base + ".yaml") as f:
         sys.stdout.write(f.read())
     sys.stdout.write("========================================\n\n")
 
-    trainset = CubeganDataset(args.train_folder, hop_size=args.hop_size,
-                              sample_rate=args.sample_rate)
-    devset = CubeganDataset(args.dev_folder, hop_size=args.hop_size,
-                            sample_rate=args.sample_rate)
+    trainset = CubeganDataset(args.train_folder, hf_tokenizer=hf_tokenizer,
+                              hop_size=args.hop_size, sample_rate=args.sample_rate)
+    devset = CubeganDataset(args.dev_folder, hf_tokenizer=hf_tokenizer,
+                            hop_size=args.hop_size, sample_rate=args.sample_rate)
     sys.stdout.write(f"train={len(trainset)} dev={len(devset)} examples\n")
 
     enc_path = args.output_base + ".encodings"
@@ -165,13 +208,18 @@ def train_on(args, device, mesh=None):
     cfg = CubeganConfig(
         languasito=LanguasitoConfig(
             num_phones=len(encodings.phon2int), num_speakers=len(encodings.speaker2int),
-            max_pitch=encodings.max_pitch, max_duration=encodings.max_duration),
+            max_pitch=encodings.max_pitch, max_duration=encodings.max_duration,
+            cond_type=cond_type,
+            lm_dim=lm_config.hidden_size if lm_config is not None else None),
         lr=args.lr, sample_rate=args.sample_rate, hop_size=args.hop_size)
     cfg = dataclasses.replace(
         cfg, hifigan=dataclasses.replace(cfg.hifigan, fused_tail_train=args.fused_tail_train,
                                          compute_dtype=args.compute_dtype),
         disc_compute_dtype=args.compute_dtype)
-    model = init_random(Cubegan(cfg, train=True), seed=0).to(device)
+    model = init_random(Cubegan(cfg, train=True, lm_config=lm_config), seed=0)
+    if lm_state is not None:  # the imported encoder over the random init
+        model.hf.load_state_dict(lm_state, strict=True)
+    model = model.to(device)
     step, vstep = train_step, val_step
     if mesh is not None:
         from ttscube_tpu_torch.parallel.mesh import (make_parallel_train_step,
@@ -180,7 +228,12 @@ def train_on(args, device, mesh=None):
         step = make_parallel_train_step(model, mesh, train_step)
         vstep = make_parallel_val_step(model, mesh, val_step)
     state = create_train_state(model, seed=0)  # after sharding: it holds the shards
-    collate = CubeganCollate(encodings, hop=args.hop_size)
+    # HF: the token axis at the 512-token window and the word axis in buckets of 8
+    hf_cond = cond_type == "hf"
+    collate = CubeganCollate(encodings, word_embedder=word_embedder,
+                             hop=args.hop_size, hf_conditioning=hf_cond,
+                             bucket_tokens=512 if hf_cond else 64,
+                             bucket_words=8 if hf_cond else 1)
 
     def on_epoch_end(epoch, st):
         cubegan_synthesize_dataset(st.model, devset, collate, "generated_files/free/",
