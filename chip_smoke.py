@@ -101,6 +101,17 @@ Phases, each printing one line with its seconds as it ends:
               served by TTSCube on the card from the unpacked files (the HF tokenizer
               directory moved away): warmup and the first request within 1.5x, the three
               requests' latencies, fp32 against the CPU (5e-5), the encoder's device ms
+  legacy      Textcoder and the dual-rate WaveRNN vocoder at full width on import_export's
+              folder: the Textcoder trainer CLI (B = 16, pframes 3, one epoch; --resume
+              bit-equal and its next step bit-equal), five timed steps and one B = 2 step
+              against the CPU (TF32 off); synthesize_devset forced and free for 3 dev
+              utterances through a v1 Generator (ms per utterance, ms and launches per
+              decoder group); the vocoder trainer CLI at its defaults (2 x 512 GRUs at 24
+              and 2.4 kHz, MOL, 24,000-sample crops, B = 16; .lr.best and .hr.best,
+              --resume bit-equal), timed steps (busy share, peak memory); CubenetVocoder.infer
+              on 1 s of mel in 20 chunks (audio s per wall s, µs and launches per sample
+              step, the sampled logits against the teacher-forced nets, fp32 TF32 off).
+              None of the kernels runs here
   generator_resblock2  a plain Generator at v1's widths with ResBlock2 (HiFi-GAN v3's
               kernels and dilations), fp32 on the card against the CPU
   times       each kernel's median time beside its plain version's and its bound (and
@@ -203,6 +214,23 @@ LM_CHECK = (2, 64)
 TOL_LM = 1e-4
 LM_STEP_BATCH = 16
 LM_TIMED_STEPS = 4
+# legacy: Textcoder (its module's widths, pframes 3) and the vocoder (train_vocoder's
+# defaults) at B = LEGACY_BATCH on import_export's folder; the Textcoder CLI for
+# TEXTCODER_CLI_STEPS (4 at B = 16 is one epoch of the 56 train utterances) and
+# TEXTCODER_TIMED steps timed; synthesize_devset of SYNTH_UTTS dev utterances, free runs
+# of SYNTH_FRAMES (its default); the vocoder CLI for VOCODER_CLI_STEPS and VOCODER_TIMED
+# steps timed; infer on INFER_FRAMES (1 s) in INFER_CHUNKS chunks; the sampled logits
+# against the teacher-forced nets within TOL_SAMPLER (the CPU tests' WaveRNN logits limit)
+LEGACY_BATCH = 16
+TEXTCODER_CLI_STEPS = 4
+TEXTCODER_TIMED = 5
+SYNTH_UTTS = 3
+SYNTH_FRAMES = 1024
+VOCODER_CLI_STEPS = 2
+VOCODER_TIMED = 3
+INFER_FRAMES, INFER_CHUNKS = 100, 20
+TOL_SAMPLER = 5e-5
+VOCODER_PROFILE_CROP = 4800
 # C7: the first request after TTSCube.warmup, at most this many times the same request's
 # steady-state median
 FIRST_REQUEST_BOUND = 1.5
@@ -601,14 +629,16 @@ def same_train_state(a, b) -> bool:
     return True
 
 
-def device_profile(fn):
+def device_profile(fn, host: bool = True):
     """Run `fn` once under torch.profiler: (wall ms with the profiler on, device-busy
-    ms, {kernel name: (ms, launches)}, device events)."""
+    ms, {kernel name: (ms, launches)}, device events). `host=False` records the device
+    alone: a run of a few hundred thousand launches then takes seconds, not minutes, to
+    read back."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA][not host:]) as prof:
         t1 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1616,6 +1646,261 @@ def lm_phase(work: Path, pbase: str) -> dict:
     return out
 
 
+def legacy_phase(work: Path) -> dict:
+    """Textcoder and the dual-rate WaveRNN vocoder on the card at their full widths, on
+    the corpus that import_export imported into `work/card`: the Textcoder trainer CLI
+    (B = LEGACY_BATCH, pframes 3, TEXTCODER_CLI_STEPS steps with validation and saves:
+    the JAX package's file names, `--resume` bit-equal and the next step from it
+    bit-equal under deterministic algorithms); TEXTCODER_TIMED steps at B = LEGACY_BATCH
+    (host-clock median, busy share) and one B = 2 step on the card against the CPU (TF32
+    off: losses TOL_LOSS relative, the parameters in units of lr, the running averages);
+    `synthesize_devset` forced and free for SYNTH_UTTS dev utterances through a v1
+    Generator at full width from seeded weights (ms per utterance, the free run's ms and
+    device launches per decoder group); the vocoder trainer CLI at its defaults (2 x 512
+    GRUs at 24 and 2.4 kHz, MOL, crops of 24,000 samples, B = 16) for VOCODER_CLI_STEPS
+    steps (`.lr.best` and `.hr.best` written, `--resume` bit-equal); VOCODER_TIMED steps
+    (host-clock median, busy share, peak memory); `CubenetVocoder.infer` on INFER_FRAMES
+    frames of a dev utterance's mel in INFER_CHUNKS chunks (audio s per wall s, µs and
+    device launches per sample step, and the logits each step sampled from against the
+    teacher-forced nets on the samples, fp32 with TF32 off, within TOL_SAMPLER). None of
+    the kernels runs here. Returns the launches of the phase's paths and the numbers to
+    print."""
+    import copy
+    import os
+
+    import numpy as np
+    import torch
+
+    from ttscube_tpu_torch.convert import init_random
+    from ttscube_tpu_torch.data.collate import TextcoderCollate, VocoderCollate
+    from ttscube_tpu_torch.data.datasets import CubeganDataset, VocoderDataset
+    from ttscube_tpu_torch.data.encodings import TextcoderEncodings
+    from ttscube_tpu_torch.models.cubegan import batch_to_torch
+    from ttscube_tpu_torch.models.hifigan import Generator, HifiganConfig
+    from ttscube_tpu_torch.scripts import train_textcoder, train_vocoder
+    from ttscube_tpu_torch.train import states as ts
+    from ttscube_tpu_torch.train.runtime import synthesize_devset
+
+    dev = torch.device("cuda")
+    train_dir, dev_dir = work / "card" / "train", work / "card" / "dev"
+    out = {}
+    clock = [time.perf_counter()]
+
+    def lap() -> str:
+        """The seconds since the phase's previous part ended, for its print line."""
+        now = time.perf_counter()
+        took, clock[0] = now - clock[0], now
+        return f"[part {took:.1f} s]"
+
+    torch.cuda.synchronize()
+    zero_counts()
+
+    # -- Textcoder: the trainer CLI, resume, its next step --------------------------------
+    base = str(work / "legacy" / "textcoder")
+    argv = ["--train-folder", str(train_dir), "--dev-folder", str(dev_dir), "--output-base",
+            base, "--batch-size", str(LEGACY_BATCH), "--pframes", "3"]
+    t1 = time.perf_counter()
+    live = train_textcoder.main(argv + ["--max-steps", str(TEXTCODER_CLI_STEPS)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t1
+    files = [ext for ext in ("yaml", "encodings", "best", "last", "opt.last")
+             if os.path.getsize(f"{base}.{ext}") > 0]
+    check(live.step == TEXTCODER_CLI_STEPS and len(files) == 5
+          and next(live.model.parameters()).is_cuda, f"legacy textcoder: {live.step} steps, "
+          f"files {files}")
+    resumed = train_textcoder.main(argv + ["--resume", "--max-epochs", "0"])
+    restored = same_simple_state(live, resumed)
+    enc = TextcoderEncodings(base + ".encodings")
+    collate = TextcoderCollate(enc)
+    trainset, devset = CubeganDataset(str(train_dir)), CubeganDataset(str(dev_dir))
+    nb_host = collate([trainset[i] for i in range(LEGACY_BATCH)])
+    nb = batch_to_torch(nb_host, dev)
+    with deterministic():
+        _, m_live = ts.textcoder_train_step(live, nb)
+        _, m_back = ts.textcoder_train_step(resumed, nb)
+    equal = torch.equal(m_live["loss"], m_back["loss"]) and same_simple_state(live, resumed)
+    print(f"  textcoder trainer CLI: {TEXTCODER_CLI_STEPS} steps at B={LEGACY_BATCH} with "
+          f"validation and saves {cli_s:.1f} s ({len(trainset)} train / {len(devset)} dev "
+          f"utterances; files {', '.join(files)}); --resume bit-equal: {restored}, the next "
+          f"step from both bit-equal: {equal} {lap()}", flush=True)
+    check(restored and equal, "legacy textcoder: --resume or the step after it differs")
+    del resumed
+
+    # -- Textcoder: the step's time, and one B = 2 step against the CPU ---------------------
+    step_ms = []
+    for _ in range(TEXTCODER_TIMED):
+        t1 = time.perf_counter()
+        ts.textcoder_train_step(live, nb)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    prof = device_profile(lambda: ts.textcoder_train_step(live, nb))
+    small_host = collate([trainset[i] for i in range(2)])
+    w = {k: v.detach().cpu().clone() for k, v in live.model.state_dict().items()}
+    card_m, cpu_m = copy.deepcopy(live.model), copy.deepcopy(live.model).cpu()
+    card_m.load_state_dict(w)
+    cpu_m.load_state_dict(w)
+    sc, sp = ts.create_textcoder_state(card_m), ts.create_textcoder_state(cpu_m)
+    with no_tf32():
+        _, mc = ts.textcoder_train_step(sc, batch_to_torch(small_host, dev))
+    _, mp = ts.textcoder_train_step(sp, batch_to_torch(small_host, "cpu"))
+    rel = max(abs(mc[k].item() - mp[k].item()) / abs(mp[k].item()) for k in mp)
+    lr = sc.optimizer.param_groups[0]["initial_lr"]
+    worst, over, far, total = param_distance(
+        {n: p.detach().cpu() for n, p in card_m.named_parameters()},
+        {n: p.detach().cpu() for n, p in cpu_m.named_parameters()}, lr)
+    stats_err = max(distance(b.cpu(), cpu_m.state_dict()[n])[0]
+                    for n, b in card_m.named_buffers())
+    del sc, sp, card_m, cpu_m
+    out["textcoder"] = dict(step_ms=statistics.median(step_ms[1:]), busy=prof[1] / prof[0],
+                            cli_s=cli_s)
+    print(f"  textcoder step B={LEGACY_BATCH} ms (host clock) "
+          f"{', '.join(f'{v:.1f}' for v in step_ms)}, median after the first "
+          f"{out['textcoder']['step_ms']:.1f}; card vs CPU step B=2 (TF32 off): losses max "
+          f"rel {rel:.3e} tol={TOL_LOSS:.0e}, params max {worst / lr:.4f} lr, {over} beyond 2 "
+          f"lr + rounding, {far} of {total} beyond 0.01 lr; running averages "
+          f"max_abs_err={stats_err:.3e} tol=1e-05 {lap()}", flush=True)
+    print_profile(f"textcoder train step B={LEGACY_BATCH}", *prof)
+    check(rel <= TOL_LOSS and over == 0 and far <= 1e-3 * total and stats_err <= 1e-5,
+          "legacy textcoder: the card's step differs from the CPU's")
+
+    # -- synthesize_devset through a v1 generator ---------------------------------------------
+    gen = init_random(Generator(HifiganConfig()), SEED + 11).to(dev).eval()
+    subset = [devset[i] for i in range(SYNTH_UTTS)]
+    synth = {}
+    for forced in (True, False):
+        where = work / "legacy" / ("forced" if forced else "free")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mels = synthesize_devset(live.model, gen, subset, collate, str(where),
+                                 forced_synthesis=forced, max_frames=SYNTH_FRAMES)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3 / SYNTH_UTTS
+        names = sorted(p.name for p in where.iterdir())
+        check(len(names) == 2 * SYNTH_UTTS and all(np.isfinite(m).all() for m in mels),
+              f"legacy synthesize_devset: {names}")
+        synth["forced" if forced else "free"] = ms
+    X = {k: v for k, v in batch_to_torch(collate(subset[:1]), dev).items() if k.startswith("x_")}
+    groups = -(-SYNTH_FRAMES // 3)
+    live.model.eval()
+    with torch.no_grad():
+        live.model.infer(X, SYNTH_FRAMES, generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        live.model.infer(X, SYNTH_FRAMES, generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        free_ms = (time.perf_counter() - t1) * 1e3
+        fprof = device_profile(lambda: live.model.infer(
+            X, SYNTH_FRAMES, generator=torch.Generator().manual_seed(0)))
+    out["synth"] = dict(synth, group_ms=free_ms / groups, launches_per_group=fprof[3] / groups)
+    print(f"  synthesize_devset {SYNTH_UTTS} dev utterances through a v1 Generator: forced "
+          f"{synth['forced']:.1f} ms, free ({SYNTH_FRAMES} frames) {synth['free']:.1f} ms per "
+          f"utterance; the free run alone {free_ms:.1f} ms = {free_ms / groups:.3f} ms per "
+          f"decoder group ({groups} groups), {fprof[3] / groups:.1f} device launches per group "
+          f"{lap()}", flush=True)
+    print_profile(f"textcoder free run, {groups} groups", *fprof)
+    del live, gen
+
+    # -- the vocoder: the trainer CLI, resume ---------------------------------------------------
+    vbase = str(work / "legacy" / "vocoder")
+    vargv = ["--train-folder", str(train_dir), "--dev-folder", str(dev_dir), "--output-base",
+             vbase, "--batch-size", str(LEGACY_BATCH), "--cache-dir", str(work / "legacy_cache")]
+    t1 = time.perf_counter()
+    vlive = train_vocoder.main(vargv + ["--max-steps", str(VOCODER_CLI_STEPS)])
+    torch.cuda.synchronize()
+    vcli_s = time.perf_counter() - t1
+    vfiles = [ext for ext in ("yaml", "best", "last", "opt.last", "lr.best", "hr.best")
+              if os.path.getsize(f"{vbase}.{ext}") > 0]
+    vback = train_vocoder.main(vargv + ["--resume", "--max-epochs", "0"])
+    vrestored = same_simple_state(vlive, vback)
+    c = vlive.model.config
+    print(f"  vocoder trainer CLI at its defaults (GRUs {c.num_layers_hr} x {c.layer_size_hr} "
+          f"at 24 kHz, {c.num_layers_lr} x {c.layer_size_lr} at 2.4 kHz, {c.output}, crops of "
+          f"24000 samples, B={LEGACY_BATCH}): {VOCODER_CLI_STEPS} steps with validation and "
+          f"saves {vcli_s:.1f} s; files {', '.join(vfiles)}; --resume bit-equal: {vrestored} "
+          f"{lap()}", flush=True)
+    check(vlive.step == VOCODER_CLI_STEPS and len(vfiles) == 6 and vrestored,
+          f"legacy vocoder CLI: {vlive.step} steps, files {vfiles}, resume {vrestored}")
+    del vback
+
+    # -- the vocoder: the step's time and memory -------------------------------------------------
+    vset = VocoderDataset(str(train_dir), max_segment_size=24000, cache_dir=str(
+        work / "legacy_cache"), crop_seed=5, device=dev)
+    vb = batch_to_torch(VocoderCollate()([vset[i] for i in range(LEGACY_BATCH)]), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vstep_ms = []
+    for _ in range(VOCODER_TIMED):
+        t1 = time.perf_counter()
+        _, vm = ts.vocoder_train_step(vlive, vb)
+        torch.cuda.synchronize()
+        vstep_ms.append((time.perf_counter() - t1) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # profiled on a crop of VOCODER_PROFILE_CROP samples, device events only: the whole
+    # step's ~320,000 launches take minutes to read back
+    vb_short = {"x": vb["x"][:, :VOCODER_PROFILE_CROP],
+                "x_low": vb["x_low"][:, :VOCODER_PROFILE_CROP // 10],
+                "mel": vb["mel"][:, :VOCODER_PROFILE_CROP // 240 + 1]}
+    vprof = device_profile(lambda: ts.vocoder_train_step(vlive, vb_short), host=False)
+    check(all(math.isfinite(float(v)) for v in vm.values()), f"legacy vocoder step: {vm}")
+    out["vocoder"] = dict(step_ms=statistics.median(vstep_ms[1:]), busy=vprof[1] / vprof[0],
+                          peak_gb=peak_gb, cli_s=vcli_s)
+    print(f"  vocoder step B={LEGACY_BATCH} x 24000 samples ms (host clock) "
+          f"{', '.join(f'{v:.1f}' for v in vstep_ms)}, median after the first "
+          f"{out['vocoder']['step_ms']:.1f}; peak memory {peak_gb:.2f} GiB; losses "
+          f"{', '.join(f'{k}={float(v):.4f}' for k, v in vm.items())} {lap()}", flush=True)
+    print_profile(f"vocoder train step B={LEGACY_BATCH} on {VOCODER_PROFILE_CROP}-sample "
+                  f"crops", *vprof)
+
+    # -- the vocoder: chunk-parallel synthesis, and its logits on the card ------------------------
+    model = vlive.model.eval()
+    mel = torch.from_numpy(VocoderDataset(str(dev_dir), random_start=False, cache_dir=str(
+        work / "legacy_cache"), device=dev)[0][2][:INFER_FRAMES]).to(dev)[None]
+    check(mel.shape == (1, INFER_FRAMES, 80), f"legacy infer: mel {tuple(mel.shape)}")
+    steps_n = INFER_FRAMES * c.upsample // c.upsample_low + (
+        INFER_FRAMES // INFER_CHUNKS + 1) * c.upsample
+    model.infer(mel, torch.Generator().manual_seed(1), num_chunks=INFER_CHUNKS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    x_low, audio = model.infer(mel, torch.Generator().manual_seed(1), num_chunks=INFER_CHUNKS)
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t1
+    # profiled on INFER_CHUNKS frames (one per chunk), device events only
+    short = mel[:, :INFER_CHUNKS]
+    short_steps = INFER_CHUNKS * c.upsample // c.upsample_low + 2 * c.upsample
+    iprof = device_profile(lambda: model.infer(short, torch.Generator().manual_seed(1),
+                                               num_chunks=INFER_CHUNKS), host=False)
+    audio_s = audio.shape[1] / 24000
+    with no_tf32(), torch.no_grad():
+        x_low, audio, aux = model.infer(mel, torch.Generator().manual_seed(2),
+                                        num_chunks=INFER_CHUNKS, return_logits=True)
+        want_lr = model.lr_net(mel, model.shift(x_low))
+        want_hr = model.hr(aux["mel_seed"], model.shift(aux["audio_c"]), aux["low_seed"])
+        torch.cuda.synchronize()
+    err = max(distance(aux["lr_logits"], want_lr)[0], distance(aux["hr_logits"], want_hr)[0])
+    out["infer"] = dict(rate=audio_s / infer_s, us_per_step=infer_s * 1e6 / steps_n,
+                        launches_per_step=iprof[3] / short_steps, logits_err=err)
+    print(f"  CubenetVocoder.infer {INFER_FRAMES} frames in {INFER_CHUNKS} chunks: "
+          f"{audio.shape[1]} samples ({audio_s:.2f} s) in {infer_s * 1e3:.1f} ms = "
+          f"{audio_s / infer_s:.4f} audio s per wall s; {steps_n} sample steps "
+          f"({INFER_FRAMES * c.upsample // c.upsample_low} at 2.4 kHz, then "
+          f"{(INFER_FRAMES // INFER_CHUNKS + 1) * c.upsample} at 24 kHz x {INFER_CHUNKS} "
+          f"chunks): {out['infer']['us_per_step']:.1f} us per step; "
+          f"{out['infer']['launches_per_step']:.1f} device launches per step ({short_steps} "
+          f"steps of {INFER_CHUNKS} frames under the profiler); the sampled logits vs the teacher-forced nets on the samples "
+          f"(fp32, TF32 off) max_abs_err={err:.3e} tol={TOL_SAMPLER:.0e}; audio peak "
+          f"{float(audio.abs().max()):.3f} {lap()}", flush=True)
+    print_profile(f"vocoder infer of {INFER_CHUNKS} frames, {short_steps} sample steps",
+                  *iprof)
+    check(audio.shape == (1, INFER_FRAMES * c.upsample) and bool(torch.isfinite(audio).all())
+          and float(audio.abs().max()) <= 1.0 and err <= TOL_SAMPLER,
+          "legacy infer: the audio or the sampled logits are off")
+    out["counts"] = read_counts()
+    check(not any(out["counts"].values()), f"legacy: a kernel launched: {out['counts']}")
+    del vlive, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2510,13 +2795,25 @@ def main() -> int:
     # -- lm -------------------------------------------------------------------------------
     t0 = time.perf_counter()
     lm_run = lm_phase(work, ph_run["pbase"])
-    shutil.rmtree(work)
     say("lm", t0, encoder_err=f"{lm_run['enc_err']:.3e}",
         step_ms=f"{lm_run['step']['hf']['ms']:.1f}",
         plain_step_ms=f"{lm_run['step']['plain']['ms']:.1f}",
         hf_request_ms=f"{lm_run['served']['hf']['steady']:.1f}",
         launches_b1=lm_run["counts"]["fused_tail_stage"],
         launches_b2=lm_run["counts"]["fused_tail_stage_grad"])
+
+    # -- legacy ---------------------------------------------------------------------------
+    t0 = time.perf_counter()
+    legacy_run = legacy_phase(work)
+    shutil.rmtree(work)
+    say("legacy", t0, textcoder_step_ms=f"{legacy_run['textcoder']['step_ms']:.1f}",
+        textcoder_busy_share=f"{legacy_run['textcoder']['busy']:.3f}",
+        group_ms=f"{legacy_run['synth']['group_ms']:.3f}",
+        vocoder_step_ms=f"{legacy_run['vocoder']['step_ms']:.1f}",
+        vocoder_busy_share=f"{legacy_run['vocoder']['busy']:.3f}",
+        vocoder_peak_gib=f"{legacy_run['vocoder']['peak_gb']:.2f}",
+        infer_audio_s_per_s=f"{legacy_run['infer']['rate']:.4f}",
+        infer_us_per_step=f"{legacy_run['infer']['us_per_step']:.1f}")
 
     # -- generator_resblock2 ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2746,7 +3043,7 @@ def main() -> int:
     paths = (warm_counts, serve_counts, wide_counts, batch_runs["whole"]["counts"],
              batch_runs["chunked"]["counts"], train_counts, bf16_counts, trainer_counts,
              trainer16_counts, mesh_run["counts"], ph_run["counts"], ie_run["counts"],
-             lm_run["counts"])
+             lm_run["counts"], legacy_run["counts"])
     main_counts = {n: sum(c[n] for c in paths) for n in serve_counts}
     print(f"  main-path launches: {main_counts}; launches in the kernel phases: "
           f"{phase_launches}", flush=True)

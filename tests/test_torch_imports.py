@@ -92,6 +92,11 @@ PHONEMIZER_MODULES = ("models.blocks", "models.g2p", "models.phonemizer", "train
                       "scripts.train_phonemizer", "scripts.g2p", "scripts.import_corpus")
 LM_MODULES = ("utils.hf", "utils.hfcond", "utils.wordvec", "models.lm", "models.cubegan",
               "api", "scripts.train_cubegan", "scripts.export_model", "scripts.make_demo_lm")
+LEGACY_MODULES = ("ops.rnn", "ops.linear", "dsp.mulaw", "models.heads", "models.blocks",
+                  "models.textcoder", "models.wavernn", "data.encodings", "data.collate",
+                  "data.augment", "data.datasets", "data.legacy", "train.states",
+                  "train.runtime", "convert", "utils.checkpoint", "scripts.train_textcoder",
+                  "scripts.train_vocoder")
 
 
 def test_the_phonemizer_family_is_checked():
@@ -104,9 +109,15 @@ def test_the_lm_conditioning_modules_are_checked():
     assert {f"ttscube_tpu_torch/{m.replace('.', '/')}.py" for m in LM_MODULES} <= names
 
 
-@pytest.mark.parametrize("module", PHONEMIZER_MODULES + LM_MODULES)
+def test_the_legacy_generation_is_checked():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"ttscube_tpu_torch/{m.replace('.', '/')}.py" for m in LEGACY_MODULES} <= names
+
+
+@pytest.mark.parametrize("module", PHONEMIZER_MODULES + LM_MODULES + LEGACY_MODULES)
 def test_imports_with_the_missing_packages_blocked(module):
-    """Each module of the phonemizer family and of LM conditioning imports in a fresh
+    """Each module of the phonemizer family, of LM conditioning and of the legacy
+    generation (Textcoder, the WaveRNN vocoder, their data and trainers) imports in a fresh
     interpreter where jax, flax, optax, yaml, msgpack, transformers, tokenizers,
     safetensors and ttscube_tpu cannot be imported (None in sys.modules makes an import
     raise)."""

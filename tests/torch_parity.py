@@ -36,6 +36,15 @@ def exact_cpu_convs():
         yield
 
 
+@pytest.fixture(scope="module")
+def release_jax_caches():
+    """Drops JAX's compiled executables when the module's tests end: a tier worker runs
+    several files one after another, and the full-width Textcoder's steps would
+    otherwise stay in its memory through them."""
+    yield
+    jax.clear_caches()
+
+
 @contextlib.contextmanager
 def torch_threads(n: int):
     """PyTorch's CPU ops on `n` threads, restored afterwards."""
@@ -139,6 +148,29 @@ def random_params(module, *example, seed: int):
         if name.endswith("['scale']"):  # a LayerNorm's
             return (1.0 + 0.1 * rng.standard_normal(x.shape)).astype(np.float32)
         if name.endswith("['bias']") or name.endswith("['b']") or "['b_l" in name:
+            return (0.05 * rng.standard_normal(x.shape)).astype(np.float32)
+        scale = 1.0 if name.endswith("['embedding']") else 1.0 / np.sqrt(
+            max(int(np.prod(x.shape[:-1])), 1))
+        return (scale * rng.standard_normal(x.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def seeded_tree(shapes, seed: int):
+    """Seeded random values for a tree of shapes (a `jax.eval_shape` result): weight-norm
+    g = 1, a norm's scale 1 + 0.1·N, other vectors (biases, a GRU's bi/bh, batch means)
+    0.05·N, a batch variance 1 + 0.1·|N|, embeddings N, kernels N / sqrt(fan-in)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        name = jax.tree_util.keystr(path)
+        if name.endswith("['g']"):
+            return np.ones(x.shape, np.float32)
+        if name.endswith("['scale']"):
+            return (1.0 + 0.1 * rng.standard_normal(x.shape)).astype(np.float32)
+        if name.endswith("['var']"):
+            return (1.0 + 0.1 * np.abs(rng.standard_normal(x.shape))).astype(np.float32)
+        if len(x.shape) == 1:
             return (0.05 * rng.standard_normal(x.shape)).astype(np.float32)
         scale = 1.0 if name.endswith("['embedding']") else 1.0 / np.sqrt(
             max(int(np.prod(x.shape[:-1])), 1))

@@ -9,9 +9,12 @@ pairs each leaf module with its subtree and applies the layout rules:
   * SNConv1d u: the JAX "spectral" collection ↔ the module's buffer `u`
   * WNConvTranspose1d v: (k, out, in) ↔ (in, out, k); its g is per input channel
   * Dense kernel: (in, out) ↔ Linear weight (out, in)
-  * LayerNorm: flax {scale, bias} ↔ torch {weight, bias}
+  * LayerNorm, BatchNorm: flax {scale, bias} ↔ torch {weight, bias}; a BatchNorm's
+    running_mean/running_var ↔ the JAX "batch_stats" collection's mean/var
   * LSTM, LSTMCell: wi/wh (D, 4H) ↔ weight_ih/weight_hh (4H, D); the single bias b
     goes to bias_ih with bias_hh = 0, and comes back as bias_ih + bias_hh
+  * GRU, GRUCell: wi/wh (D, 3H) ↔ weight_ih/weight_hh (3H, D); bi ↔ bias_ih, bh ↔
+    bias_hh
   * g, bias, embeddings, and a parameter a non-leaf module holds itself (the
     attention's v): unchanged
 
@@ -20,7 +23,7 @@ port's own reader (`utils/serialization.py`), never flax or msgpack.
 `train_state_to_jax` and `load_jax_train_state` move a whole training state (weights,
 optimizer moments and counts, spectral u, step) between the port and the JAX
 package's `TrainState` tree; `simple_state_to_jax` and `load_jax_simple_state` do the
-same for the JAX `SimpleState` of the phonemizer trainer.
+same for the JAX `SimpleState` of the phonemizer, textcoder and vocoder trainers.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from ttscube_tpu_torch.models.languasito import MaskedEmbed
 from ttscube_tpu_torch.ops.conv import (Conv1d, SNConv1d, WNConv1d, WNConv2d,
                                         WNConvTranspose1d)
-from ttscube_tpu_torch.ops.linear import Dense, Embed, LayerNorm
-from ttscube_tpu_torch.ops.rnn import LSTM, LSTMCell
+from ttscube_tpu_torch.ops.linear import BatchNorm, Dense, Embed, LayerNorm
+from ttscube_tpu_torch.ops.rnn import GRU, LSTM, GRUCell, LSTMCell
 from ttscube_tpu_torch.utils.serialization import msgpack_restore
 
 _T3 = (2, 1, 0)  # (k, a, b) ↔ (b, a, k)
@@ -55,7 +58,7 @@ def leaf_layout(mod: nn.Module) -> dict:
         out = {"weight": ("kernel", (1, 0))}
     elif isinstance(mod, Embed):
         return {"weight": ("embedding", None)}
-    elif isinstance(mod, LayerNorm):
+    elif isinstance(mod, (LayerNorm, BatchNorm)):
         return {"weight": ("scale", None), "bias": ("bias", None)}
     elif isinstance(mod, MaskedEmbed):
         return {"embedding": ("embedding", None)}
@@ -70,6 +73,11 @@ def leaf_layout(mod: nn.Module) -> dict:
     elif isinstance(mod, LSTMCell):
         return {"weight_ih": ("wi", (1, 0)), "weight_hh": ("wh", (1, 0)),
                 "bias_ih": ("b", None)}
+    elif isinstance(mod, (GRU, GRUCell)):
+        sfx = [f"_l{n}" for n in range(mod.num_layers)] if isinstance(mod, GRU) else [""]
+        return {f"{t}{s}": (f"{j}{s}", axes) for s in sfx for t, j, axes in (
+            ("weight_ih", "wi", (1, 0)), ("weight_hh", "wh", (1, 0)),
+            ("bias_ih", "bi", None), ("bias_hh", "bh", None))}
     else:
         raise TypeError(f"no JAX layout rule for {type(mod).__name__}")
     if getattr(mod, "bias", None) is not None:
@@ -107,30 +115,40 @@ def _leaf_to_jax(mod: nn.Module, sd: dict) -> dict:
 
 
 _LEAVES = (Conv1d, SNConv1d, WNConv1d, WNConv2d, WNConvTranspose1d, Dense, Embed,
-           LayerNorm, MaskedEmbed, LSTM, LSTMCell)
+           LayerNorm, BatchNorm, MaskedEmbed, LSTM, LSTMCell, GRU, GRUCell)
+# the buffers a leaf keeps beside its parameters, and their names in the JAX tree that
+# holds them ("spectral" for u, "batch_stats" for a BatchNorm's running averages)
+_BUFFERS = {SNConv1d: {"u": "u"}, BatchNorm: {"running_mean": "mean", "running_var": "var"}}
 
 
-def jax_to_state_dict(module: nn.Module, tree: dict, spectral: dict | None = None) -> dict:
-    """The state dict of `module` holding the JAX parameter tree `tree` and, for its
-    spectral-normalized convs, the `u` vectors of the JAX "spectral" tree `spectral`
-    (laid out as `tree`; without it each keeps the `u` it holds)."""
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def jax_to_state_dict(module: nn.Module, tree: dict, spectral: dict | None = None,
+                      batch_stats: dict | None = None) -> dict:
+    """The state dict of `module` holding the JAX parameter tree `tree` and the buffers
+    of the JAX trees laid out as `tree`: `spectral` (each spectral-normalized conv's
+    `u`) and `batch_stats` (each BatchNorm's running mean and var). Without a tree its
+    leaves keep the buffers they hold."""
     out = {}
 
-    def walk(mod, sub, spec, prefix):
+    def walk(mod, sub, bufs, prefix):
         if isinstance(mod, _LEAVES):
             out.update({prefix + k: v for k, v in _leaf_to_torch(mod, sub).items()})
-            if isinstance(mod, SNConv1d):
-                u = mod.u.detach().cpu() if spec is None else \
-                    torch.from_numpy(np.array(spec["u"], dtype=np.float32))
-                out[prefix + "u"] = u
+            for name, jname in _BUFFERS.get(type(mod), {}).items():
+                out[prefix + name] = getattr(mod, name).detach().cpu() if bufs is None \
+                    else _f32(bufs[jname])
             return
         for name, _ in mod.named_parameters(recurse=False):
-            out[prefix + name] = torch.from_numpy(np.array(sub[name], dtype=np.float32))
+            out[prefix + name] = _f32(sub[name])
         for name, child in mod.named_children():
-            walk(child, sub[name], None if spec is None else spec.get(name),
+            walk(child, sub[name], None if bufs is None else bufs.get(name),
                  prefix + name + ".")
 
-    walk(module, tree, spectral, "")
+    if spectral is not None and batch_stats is not None:
+        raise ValueError("no port module holds both spectral u and batch statistics")
+    walk(module, tree, spectral if spectral is not None else batch_stats, "")
     return out
 
 
@@ -150,17 +168,27 @@ def state_dict_to_jax(module: nn.Module, state_dict: dict | None = None) -> dict
     return walk(module, "")
 
 
-def spectral_to_jax(module: nn.Module) -> dict:
-    """The JAX "spectral" tree of `module`: the `u` of each spectral-normalized conv,
-    nested as the parameters are, subtrees without one left out."""
+def _buffers_to_jax(module: nn.Module, kind) -> dict:
+    """The JAX tree of the buffers of `module`'s leaves of type `kind`, nested as the
+    parameters are, subtrees without one left out."""
 
     def walk(mod):
-        if isinstance(mod, SNConv1d):
-            return {"u": host(mod.u)}
+        if isinstance(mod, kind):
+            return {jname: host(getattr(mod, name)) for name, jname in _BUFFERS[kind].items()}
         sub = {name: walk(child) for name, child in mod.named_children()}
         return {k: v for k, v in sub.items() if v}
 
     return walk(module)
+
+
+def spectral_to_jax(module: nn.Module) -> dict:
+    """The JAX "spectral" tree of `module`: the `u` of each spectral-normalized conv."""
+    return _buffers_to_jax(module, SNConv1d)
+
+
+def batch_stats_to_jax(module: nn.Module) -> dict:
+    """The JAX "batch_stats" tree of `module`: each BatchNorm's {mean, var}."""
+    return _buffers_to_jax(module, BatchNorm)
 
 
 def like(full: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -180,10 +208,11 @@ def load_state_dict(module: nn.Module, sd: dict) -> None:
                             for k, v in sd.items()}, strict=True)
 
 
-def load_jax_params(module: nn.Module, tree: dict, spectral: dict | None = None) -> nn.Module:
-    """Copy a JAX parameter tree (and spectral tree) onto `module` (strict: every
-    weight must be there)."""
-    load_state_dict(module, jax_to_state_dict(module, tree, spectral))
+def load_jax_params(module: nn.Module, tree: dict, spectral: dict | None = None,
+                    batch_stats: dict | None = None) -> nn.Module:
+    """Copy a JAX parameter tree (and spectral or batch_stats tree) onto `module`
+    (strict: every weight must be there)."""
+    load_state_dict(module, jax_to_state_dict(module, tree, spectral, batch_stats))
     return module
 
 
@@ -376,12 +405,16 @@ def _load_train_state(state, tree: dict, where: str):
     return state
 
 
-# -- the SimpleState of the phonemizer trainer -----------------------------------------
+# -- the SimpleState of the phonemizer, textcoder and vocoder trainers -------------------
 #
-# The JAX `SimpleState` (ttscube_tpu/train/states.py) is {params, opt_state, step,
-# extra: None}, its opt_state optax adamw's chain (ScaleByAdamState {count, mu, nu},
-# then the decay's and the learning rate's empty states: {"0": ..., "1": {}, "2": {}});
-# the port's (train/states.py) holds the model, one torch AdamW and the step.
+# The JAX `SimpleState` (ttscube_tpu/train/states.py) is {params, opt_state, step, extra}.
+# Its opt_state is optax adamw's chain: ScaleByAdamState {count, mu, nu}, the decay's
+# empty state, then the learning rate's: {} for a constant rate (the phonemizer), {count}
+# for a schedule (textcoder and vocoder: {"0": ..., "1": {}, "2": {count}}). The vocoder
+# clips the global norm first: {"0": {} (the clip), "1": <the adamw chain>}. `extra`
+# holds Textcoder's batch_stats, else None. The port's (train/states.py) holds the model,
+# one torch AdamW, the step, and `lr_decay` / `clip_norm` where the JAX optimizer has a
+# schedule or a clip.
 
 
 def simple_state_to_jax(state) -> dict:
@@ -392,25 +425,40 @@ def simple_state_to_jax(state) -> dict:
         for p in group["params"]})
     adam = {"count": np.asarray(counts.get("all", 0), np.int32),
             "mu": moments["exp_avg"], "nu": moments["exp_avg_sq"]}
-    return {"params": state_dict_to_jax(state.model),
-            "opt_state": {"0": adam, "1": {}, "2": {}}, "step": step, "extra": None}
+    opt = {"0": adam, "1": {}, "2": {} if state.lr_decay is None else {"count": step}}
+    if state.clip_norm is not None:
+        opt = {"0": {}, "1": opt}
+    return {"params": state_dict_to_jax(state.model), "opt_state": opt, "step": step,
+            "extra": batch_stats_to_jax(state.model) or None}
 
 
 def load_jax_simple_state(state, tree: dict, where: str = "<tree>"):
     """Copy a JAX SimpleState tree onto a port SimpleState in place (parameters, the
-    moments and count, the step); returns it. Raises ValueError, with nothing restored,
-    when the tree is no SimpleState of this model."""
+    moments and count, the step, Textcoder's batch statistics); returns it. Raises
+    ValueError, with nothing restored, when the tree is no SimpleState of this model
+    and this optimizer."""
+    opt = tree.get("opt_state") if isinstance(tree, dict) else None
+    if state.clip_norm is not None and isinstance(opt, dict):
+        opt = opt.get("1")  # the chain after the clip's empty state
     if not isinstance(tree, dict) or not {"params", "opt_state", "step"} <= set(tree) \
-            or not isinstance(tree["opt_state"], dict) \
-            or not {"count", "mu", "nu"} <= set(tree["opt_state"].get("0") or {}):
-        raise ValueError(f"'{where}' holds no SimpleState {{params, opt_state (adamw), "
-                         "step}")
+            or not isinstance(opt, dict) \
+            or not {"count", "mu", "nu"} <= set(opt.get("0") or {}):
+        raise ValueError(f"'{where}' holds no SimpleState {{params, opt_state ("
+                         f"{'clip, ' if state.clip_norm is not None else ''}adamw), step}}")
+    step = int(tree["step"])
+    if state.lr_decay is not None and int((opt.get("2") or {}).get("count", -1)) != step:
+        raise ValueError(f"'{where}': the learning-rate schedule's count differs from the "
+                         f"step {step}; the port's learning rate follows the step")
+    stats = tree.get("extra") or None
+    has_stats = bool(batch_stats_to_jax(state.model))
+    if has_stats != (stats is not None):
+        raise ValueError(f"'{where}' does not fit this model: batch statistics "
+                         f"{'missing' if has_stats else 'present'}")
     try:
-        updates = _adam_updates(state.model, state.optimizer, tree["opt_state"]["0"],
-                                tree["params"])
-        sd = jax_to_state_dict(state.model, tree["params"])
+        updates = _adam_updates(state.model, state.optimizer, opt["0"], tree["params"])
+        sd = jax_to_state_dict(state.model, tree["params"], batch_stats=stats)
     except KeyError as e:
         raise ValueError(f"'{where}' does not fit this model: it lacks {e}") from e
     _load_checked(state.model, sd, updates, where)
-    state.step = int(tree["step"])
+    state.step = step
     return state

@@ -1,4 +1,4 @@
-"""The port's copy of the Cubegan and phonemizer collates (numpy only; the JAX package's
+"""The port's copy of the Cubegan, Textcoder, phonemizer and vocoder collates (numpy only; the JAX package's
 ``data/collate.py`` is the reference this file is held against).
 
 Pure-array collates with bucketed static shapes.
@@ -249,3 +249,35 @@ class PhonemizerCollate:
                 "y_phon": y_phon, "y_new_word": y_new_word,
                 "x_word_start": x_word_start, "x_word_stop": x_word_stop,
                 "x_num_words": x_num_words}
+
+
+class TextcoderCollate(CubeganCollate):
+    """CubeganCollate without the audio."""
+
+    def __call__(self, batch):
+        out = super().__call__(batch)
+        out.pop("y_audio", None)
+        return out
+
+
+class VocoderCollate:
+    """Dual-rate waveform batches from (audio, low-rate audio, mel) examples: audio
+    padded with 0, mel with −5."""
+
+    def __init__(self, x_zero: float = 0.0, mel_zero: float = -5.0):
+        self.x_zero = x_zero
+        self.mel_zero = mel_zero
+
+    def __call__(self, examples):
+        max_x = max(e[0].shape[0] for e in examples)
+        max_xl = max(e[1].shape[0] for e in examples)
+        max_mel = max(e[2].shape[0] for e in examples)
+        B = len(examples)
+        x = np.full((B, max_x), self.x_zero, np.float32)
+        x_low = np.full((B, max_xl), self.x_zero, np.float32)
+        mel = np.full((B, max_mel, examples[0][2].shape[1]), self.mel_zero, np.float32)
+        for i, (cx, cxl, cm) in enumerate(examples):
+            x[i, : cx.shape[0]] = cx
+            x_low[i, : cxl.shape[0]] = cxl
+            mel[i, : cm.shape[0]] = cm
+        return {"x": x, "x_low": x_low, "mel": mel}

@@ -1,7 +1,8 @@
 """The port's copy of the JSON encodings of `ttscube_tpu/data/encodings.py`: the
 vocabularies and stats a trained model was built with, in the same files. The trainers
-compute `CubeganEncodings` and `PhonemizerEncodings` from their train sets and save
-them; the files are the JAX package's, byte for byte."""
+compute `CubeganEncodings` (`TextcoderEncodings` is the same class) and
+`PhonemizerEncodings` from their train sets and save them; the files are the JAX
+package's, byte for byte."""
 
 from __future__ import annotations
 
@@ -55,6 +56,10 @@ class CubeganEncodings:
             json.dump({"speaker2int": self.speaker2int, "phon2int": self.phon2int,
                        "max_duration": int(self.max_duration),
                        "max_pitch": int(self.max_pitch)}, f)
+
+
+# Textcoder's vocabularies have Cubegan's schema
+TextcoderEncodings = CubeganEncodings
 
 
 class PhonemizerEncodings:

@@ -1,10 +1,14 @@
-"""LSTM, counterpart of `ttscube_tpu/ops/rnn.py::LSTM`.
+"""LSTM and GRU, counterparts of `ttscube_tpu/ops/rnn.py`.
 
 `nn.LSTM` (cuDNN on the card) over batch-first (B, T, D) input. Its gates are in the
 same i, f, g, o order as the JAX scan. The JAX module stores one bias per layer and
 direction (b_ih + b_hh); the port loads it into `bias_ih` and keeps `bias_hh` at zero
 (`ttscube_tpu_torch.convert`), taking no grads: a trained second bias would give the
 sum two optimizer updates per step where JAX gives it one.
+
+`nn.GRU` and `nn.GRUCell` compute the JAX GRU's formula in its gate order (r, z, n, the
+reset gate multiplying h @ W_hn + b_hn), and the JAX GRU stores two biases, bi and bh:
+both map onto bias_ih and bias_hh and both are trained, unlike the LSTM's.
 """
 
 from __future__ import annotations
@@ -54,3 +58,32 @@ class LSTMCell(nn.LSTMCell):
         """The zero state (h, c), each (batch, features)."""
         return (torch.zeros(batch, features, device=device, dtype=dtype),
                 torch.zeros(batch, features, device=device, dtype=dtype))
+
+
+class GRU(nn.GRU):
+    """Multi-layer unidirectional GRU: (B, T, D) → ((B, T, H), h_n (layers, B, H)).
+    The JAX module's wi_l{n}/wh_l{n} (D, 3H) map onto weight_ih_l{n}/weight_hh_l{n} (3H,
+    D), bi_l{n}/bh_l{n} onto bias_ih_l{n}/bias_hh_l{n}."""
+
+    def __init__(self, input_size: int, features: int, num_layers: int = 1):
+        super().__init__(input_size, features, num_layers=num_layers, batch_first=True)
+
+    def init_weights(self, gen: torch.Generator):
+        # JAX init: every weight and both biases ~ U(−1/√H, 1/√H)
+        scale = 1.0 / math.sqrt(self.hidden_size)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.uniform_(-scale, scale, generator=gen)
+
+    def layer_weights(self, layer: int) -> tuple:
+        """(weight_ih, weight_hh, bias_ih, bias_hh) of one layer, for stepping it with
+        `torch.gru_cell` (the WaveRNN sampler)."""
+        return tuple(getattr(self, f"{n}_l{layer}") for n in
+                     ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+
+
+class GRUCell(nn.GRUCell):
+    """One GRU step, counterpart of `ttscube_tpu/ops/rnn.py::GRUCell`: `cell(x, h) -> h`.
+    The JAX cell's wi, wh, bi and bh map as `GRU`'s do."""
+
+    init_weights = GRU.init_weights

@@ -6,8 +6,11 @@
     {base}.best       the parameters of the best validation epoch  \
     {base}.last       the parameters of the last saved epoch        } flax msgpack
     {base}.opt.last   the whole TrainState {params, opt_state, spectral, step} /
-                      (the phonemizer's: SimpleState {params, opt_state, step, extra})
+                      (the phonemizer's, Textcoder's and the vocoder's: SimpleState
+                      {params, opt_state, step, extra}, extra Textcoder's batch_stats)
     {base}.pacc.best, {base}.sacc.best   the phonemizer trainer's best parameters
+    {base}.lr.best, {base}.hr.best       the vocoder trainer's best parameters of each
+                                         net (the subtrees "lr" and "hr")
 
 Every weight file is the JAX package's pytree written with `utils/serialization.py`,
 so a file moves to the other package in either direction: JAX's `load_params` and
