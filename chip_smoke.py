@@ -112,6 +112,19 @@ Phases, each printing one line with its seconds as it ends:
               on 1 s of mel in 20 chunks (audio s per wall s, µs and launches per sample
               step, the sampled logits against the teacher-forced nets, fp32 TF32 off).
               None of the kernels runs here
+  inventory   the rest of the inventory on import_export's files, at full v1 width:
+              download_model joins the exported volumes from a file:// base into a
+              temporary HOME's cache, StoryCube("voice") serves through TTSCube.load on
+              the card (a 3-paragraph story over seeded music: B1 once per paragraph; under
+              deterministic() the host mix of the same requests within 1 int16 step; ms,
+              audio s per wall s); synthesize_from_checkpoint of the trainer's .last for 2
+              dev utterances, forced and free (ms per utterance; the forced wav card with
+              TF32 off against the CPU within 2 int16 steps); card against CPU (TF32 off):
+              Languasito v1 (B = 4, 64 characters, 400 frames), ResNet, UpsampleNet,
+              UpsampleNet2, Mel2Style, ConvTranspose1d, fft -> ifft and Griffin-Lim;
+              device_timer of B1 (checked in the times phase, within 0.5-2x of its
+              median), the max_stages prefixes 0-4 of the voice's generator (per-stage
+              ms; the last equal to the whole output), and trace() naming B1's kernel
   generator_resblock2  a plain Generator at v1's widths with ResBlock2 (HiFi-GAN v3's
               kernels and dilations), fp32 on the card against the CPU
   times       each kernel's median time beside its plain version's and its bound (and
@@ -125,8 +138,8 @@ Serving, training, their times and their profiles run under PyTorch's default TF
 settings, as a user's program does; only the fp32 comparisons and the kernels' fp32
 times turn TF32 off.
 
-The line before the last is a JSON object with one entry per kernel; the last line is
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero. Without a CUDA
+The line before the last is a JSON object with one entry per kernel, after the card's
+name and power limit once more; the last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero. Without a CUDA
 card, or without the port's package beside this file, it exits non-zero at once.
 """
 
@@ -231,6 +244,24 @@ VOCODER_TIMED = 3
 INFER_FRAMES, INFER_CHUNKS = 100, 20
 TOL_SAMPLER = 5e-5
 VOCODER_PROFILE_CROP = 4800
+# inventory: StoryCube over the exported voice, loaded by name (TTSCube.load) from a
+# cache that download_model fills from import_export's volumes; the story's paragraphs
+# are the serve phase's REQUESTS, over STORY_MUSIC_S of seeded music; the story's audio
+# against the host mix of the same requests within STORY_TOL int16 steps;
+# synthesize_from_checkpoint on CHECKPOINT_UTTS dev utterances, its forced wav card
+# against CPU within CHECKPOINT_TOL int16 steps; Languasito v1 at the LanguasitoConfig
+# widths over LANG_V1 (B, characters, frames); the blocks at BLOCKS_T frames; device_timer
+# of B1 within TIMER_RATIO of the times phase's median
+STORY_MUSIC_S = 2.0
+STORY_TOL = 1
+CHECKPOINT_UTTS = 2
+CHECKPOINT_TOL = 2
+LANG_V1 = (4, 64, 400)
+BLOCKS_T = 400
+TOL_BLOCKS = 1e-5  # of each output's range (the CPU tests' block tolerance)
+TOL_GL = 1e-4      # of the signal's peak: ifft(fft) and Griffin-Lim, card against CPU
+TIMER_RATIO = (0.5, 2.0)
+PREFIX_READINGS = 5
 # C7: the first request after TTSCube.warmup, at most this many times the same request's
 # steady-state median
 FIRST_REQUEST_BOUND = 1.5
@@ -251,6 +282,14 @@ REQUESTS = (
     "so that its frame count lands in a larger bucket of the generator, and the "
     "fused tail stage runs over many more tiles of output samples.",
 )
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi: no output"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1901,6 +1940,263 @@ def legacy_phase(work: Path) -> dict:
     return out
 
 
+def inventory_phase(work: Path, gen, w16) -> dict:
+    """The rest of the inventory on the card at full v1 width, on import_export's files
+    in `work`:
+    1. download_model joins the exported volumes (`work/dist/voice-NN`) from a file://
+       base into the cache of a temporary HOME; StoryCube("voice") serves through
+       TTSCube.load on the card; a 3-paragraph story over seeded music launches B1 once
+       per paragraph, and under deterministic() equals the host mix of the same cube's
+       three requests within STORY_TOL int16 steps;
+    2. synthesize_from_checkpoint of import_export's `.last` on CHECKPOINT_UTTS dev
+       utterances, forced and free; the forced wav of one utterance (TF32 off) against the
+       CPU's run of the same function within CHECKPOINT_TOL int16 steps;
+    3. card against CPU (TF32 off): Languasito v1 (the encodings' vocabularies, LANG_V1),
+       ResNet, UpsampleNet, UpsampleNet2, Mel2Style, ConvTranspose1d, fft → ifft on 1 s
+       and griffinlim (32 iterations) from one initial phase;
+    4. device_timer of B1 at the serving shape (the `gen` weights `w16`, checked against
+       the times phase later), the max_stages prefixes 0 … 4 of the voice's generator at
+       256 frames, the last equal to the whole output, and trace() naming B1's kernel.
+    Returns the launches of the story and of the profiling part and the numbers to
+    print."""
+    import copy
+    import os
+
+    import numpy as np
+    import torch
+
+    from ttscube_tpu_torch.convert import init_random
+    from ttscube_tpu_torch.data.encodings import CubeganEncodings
+    from ttscube_tpu_torch.dsp.mel import MelSpec, feature_mel_config
+    from ttscube_tpu_torch.models import blocks
+    from ttscube_tpu_torch.models.hifigan_fused import generator_apply_fused
+    from ttscube_tpu_torch.models.languasito import Languasito, LanguasitoConfig
+    from ttscube_tpu_torch.ops import ConvTranspose1d, fused_tail
+    from ttscube_tpu_torch.story import StoryCube
+    from ttscube_tpu_torch.train.runtime import (cubegan_from_checkpoint,
+                                                 cubegan_synthesize_dataset,
+                                                 synthesize_from_checkpoint)
+    from ttscube_tpu_torch.utils.profiling import device_timer, trace
+    from ttscube_tpu_torch.utils.repository import download_model
+    from ttscube_tpu_torch.utils.wavio import read_wav, write_wav
+
+    dev = torch.device("cuda")
+    out = {}
+    clock = [time.perf_counter()]
+
+    def lap() -> str:
+        now = time.perf_counter()
+        took, clock[0] = now - clock[0], now
+        return f"[part {took:.1f} s]"
+
+    # -- 1. a named voice with no network, and its story ----------------------------------
+    saved_home = os.environ.get("HOME")
+    os.environ["HOME"] = str(work / "home")
+    try:
+        cache = Path.home() / ".ttscube" / "models" / "voice"
+        cache.mkdir(parents=True)
+        n_vol = len(list((work / "dist").glob("voice-*")))
+        t1 = time.perf_counter()
+        download_model(str(cache), "voice", download_base=f"file://{work / 'dist'}/{{0}}")
+        fetch_s = time.perf_counter() - t1
+        check((cache / "cubegan.model").is_file() and not list(cache.glob("model*")),
+              f"inventory: download_model left {sorted(p.name for p in cache.iterdir())}")
+        rng = np.random.default_rng(SEED + 15)
+        n = int(24000 * STORY_MUSIC_S)
+        write_wav(str(cache / "music.wav"), (0.2 * np.sin(np.linspace(0, 440 * np.pi, n))
+                                             + 0.05 * rng.standard_normal(n)).astype(np.float32),
+                  24000)
+        story = StoryCube("voice")  # TTSCube.load from the cache, on the card
+    finally:
+        if saved_home is None:
+            os.environ.pop("HOME")
+        else:
+            os.environ["HOME"] = saved_home
+    cube = story._cube
+    check(cube.device.type == "cuda", f"inventory: the named voice runs on {cube.device}")
+    cube.warmup(speaker="spk0")
+    text = "\n\n".join(REQUESTS)
+    torch.cuda.synchronize()
+    zero_counts()
+    t1 = time.perf_counter()
+    told = story(text, speaker="spk0")
+    story_ms = (time.perf_counter() - t1) * 1e3
+    story_counts = read_counts()
+    audio_s = len(told["audio"]) / 24000
+    check(story_counts == dict(fused_tail_stage=len(REQUESTS), fused_mrf1=0,
+                               fused_tail_stage_mid=0, fused_tail_stage_grad=0,
+                               fused_resblock1=0, narrow_conv_blocked=0),
+          f"inventory: a story of {len(REQUESTS)} paragraphs launched {story_counts}")
+    check([m["name"] for m in told["meta"]].count("paragraph") == len(REQUESTS)
+          and told["audio"].dtype == np.int16, "inventory: the story's paragraphs")
+    with deterministic():
+        again = story(text, speaker="spk0")["audio"]
+        pcms = [cube(p, speaker="spk0") for p in REQUESTS]
+    music = read_wav(str(cache / "music.wav"))[0]
+    voice = np.concatenate([np.zeros(5 * 24000, np.float32)] + [
+        a for p in pcms for a in (p.astype(np.float32) / 32767.0, np.zeros(24000, np.float32))]
+        + [np.zeros(5 * 24000, np.float32)])
+    mix = (np.clip(np.resize(music, len(voice)) * 0.30 + voice, -1, 1) * 32700).astype(np.int16)
+    check(mix.shape == again.shape, f"inventory: story {again.shape} vs host mix {mix.shape}")
+    story_err = int(np.abs(again.astype(np.int32) - mix).max())
+    print(f"  StoryCube('voice') through TTSCube.load: {n_vol} volume(s) joined from file:// "
+          f"in {fetch_s:.2f} s; story of {len(REQUESTS)} paragraphs ({audio_s:.2f} s of audio) "
+          f"ms={story_ms:.1f} audio_s_per_wall_s={audio_s / story_ms * 1e3:.3f} launches "
+          f"{story_counts}; under deterministic() against the host mix of the 3 requests: "
+          f"max_abs_err={story_err} int16 steps tol={STORY_TOL} {lap()}", flush=True)
+    check(story_err <= STORY_TOL, f"inventory: the story differs from the host mix by {story_err}")
+    out["story"] = dict(ms=story_ms, rate=audio_s / story_ms * 1e3, err=story_err)
+
+    # -- 2. synthesize_from_checkpoint -------------------------------------------------------
+    base, dev_dir = str(work / "model" / "cubegan"), str(work / "card" / "dev")
+    wav = lambda d, u: np.round(read_wav(str(d / f"{u}.wav"))[0] * 32768).astype(np.int32)
+    ckpt = {}
+    for mode in ("forced", "free"):
+        where = work / "ckpt" / mode
+        t1 = time.perf_counter()
+        with no_tf32() if mode == "forced" else contextlib.nullcontext(), deterministic():
+            synthesize_from_checkpoint(base, dev_dir, str(where), limit=CHECKPOINT_UTTS,
+                                       free=mode == "free")
+        files = sorted(where.glob("*.wav"))
+        check(len(files) == CHECKPOINT_UTTS, f"inventory: {len(files)} {mode} wavs written")
+        ckpt[mode] = dict(call_s=time.perf_counter() - t1,
+                          samples=[len(read_wav(str(f))[0]) for f in files], files=files)
+    # the synthesis alone on the rebuilt model, as a user's program runs it (TF32 on)
+    model, ds, collate = cubegan_from_checkpoint(base, dev_dir)
+    for mode in ("forced", "free"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cubegan_synthesize_dataset(model, ds, collate, str(work / "ckpt" / f"{mode}_timed"),
+                                   limit=CHECKPOINT_UTTS, free=mode == "free")
+        torch.cuda.synchronize()
+        ckpt[mode]["ms"] = (time.perf_counter() - t1) * 1e3 / CHECKPOINT_UTTS
+    del model
+    utt = ckpt["forced"]["files"][0].stem
+    synthesize_from_checkpoint(base, dev_dir, str(work / "ckpt" / "cpu"), limit=1, free=False,
+                               device="cpu")
+    got, want = wav(work / "ckpt" / "forced", utt), wav(work / "ckpt" / "cpu", utt)
+    check(got.shape == want.shape and np.abs(want).max() > 0,
+          f"inventory: forced wav {got.shape} vs CPU {want.shape}")
+    ckpt_err = int(np.abs(got - want).max())
+    print(f"  synthesize_from_checkpoint({base}.last) on the card: forced ({CHECKPOINT_UTTS} "
+          f"utterances, samples {ckpt['forced']['samples']}) call {ckpt['forced']['call_s']:.2f} s, "
+          f"synthesis ms per utterance {ckpt['forced']['ms']:.1f}; free (samples "
+          f"{ckpt['free']['samples']}) call {ckpt['free']['call_s']:.2f} s, synthesis ms per "
+          f"utterance {ckpt['free']['ms']:.1f}; forced {utt} card (TF32 off) vs CPU "
+          f"max_abs_err={ckpt_err} int16 steps tol={CHECKPOINT_TOL} {lap()}", flush=True)
+    check(ckpt_err <= CHECKPOINT_TOL, f"inventory: the forced wav differs from the CPU's by "
+                                      f"{ckpt_err} steps")
+    out["ckpt"] = {m: dict(ms=v["ms"], call_s=v["call_s"]) for m, v in ckpt.items()}
+
+    # -- 3. card against CPU at full width ---------------------------------------------------
+    enc = CubeganEncodings(base + ".encodings")
+    lcfg = LanguasitoConfig(num_phones=len(enc.phon2int), num_speakers=len(enc.speaker2int),
+                            max_pitch=enc.max_pitch, max_duration=enc.max_duration)
+    B, N, F = LANG_V1
+    g = torch.Generator().manual_seed(SEED + 16)
+    lengths = [N - 8 * b for b in range(B)]
+    x_char = torch.zeros(B, N, dtype=torch.int64)
+    f2p = torch.zeros(B, F, dtype=torch.int64)
+    for b, n in enumerate(lengths):
+        x_char[b, :n] = torch.randint(1, lcfg.num_phones + 1, (n,), generator=g)
+        f2p[b] = torch.randint(0, n, (F,), generator=g).sort().values
+    X = {"x_char": x_char, "x_speaker": torch.randint(1, lcfg.num_speakers + 1, (B, 1),
+                                                       generator=g),
+         "y_frame2phone": f2p, "y_pitch": torch.rand(B, F, generator=g) * lcfg.max_pitch}
+    x80 = lambda c=80: torch.randn(2, BLOCKS_T, c, generator=g)
+    cases = [("Languasito v1", Languasito(lcfg), X, (2e-4, 2e-4, 2e-5), False),
+             ("ResNet 512x8", blocks.ResNet(80), x80(), (TOL_BLOCKS,), True),
+             ("UpsampleNet x16", blocks.UpsampleNet(80), x80(), (TOL_BLOCKS,), True),
+             ("UpsampleNet2 x16", blocks.UpsampleNet2(), x80(), (TOL_BLOCKS,), True),
+             ("Mel2Style 80/100/8", blocks.Mel2Style(), x80(), (TOL_BLOCKS, TOL_BLOCKS), True),
+             ("ConvTranspose1d 256->128 k16 s8", ConvTranspose1d(256, 128, 16, 8, 4), x80(256),
+              (TOL_BLOCKS,), True)]
+    rows = []
+    for i, (name, module, x, tols, scaled) in enumerate(cases):
+        module = init_random(module, SEED + 20 + i).eval()
+        with torch.no_grad():
+            want = module(x)
+            card_module = copy.deepcopy(module).to(dev)
+            xd = {k: v.to(dev) for k, v in x.items()} if isinstance(x, dict) else x.to(dev)
+            with no_tf32():
+                got = card_module(xd)
+            torch.cuda.synchronize()
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for j, (a, b, tol) in enumerate(zip(got, want, tols)):
+            limit = tol * max(1.0, float(b.abs().max())) if scaled else tol
+            err = distance(a, b)[0]
+            check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+                  f"inventory: {name} output {j} {tuple(a.shape)} vs {tuple(b.shape)}")
+            rows.append(f"{name}[{j}] {tuple(a.shape)} {err:.2e}/{limit:.1e}")
+            check(err <= limit, f"inventory: {name} output {j} card vs CPU {err:.3e} > {limit:.3e}")
+        del card_module
+    ms_ = MelSpec(feature_mel_config())
+    y = torch.randn(24000, generator=g) * 0.05 + 0.5 * torch.sin(
+        2 * math.pi * 330 * torch.arange(24000) / 24000)
+    with no_tf32():
+        spec_d, spec_c = ms_.fft(y.to(dev)), ms_.fft(y)
+        rec_d, rec_c = ms_.ifft(spec_d, 24000), ms_.ifft(spec_c, 24000)
+        phase = torch.rand(spec_c.shape, generator=g) * (2 * math.pi)
+        gl_d = ms_.griffinlim(spec_c.abs().to(dev), 32, phase=phase)
+        gl_c = ms_.griffinlim(spec_c.abs(), 32, phase=phase)
+        torch.cuda.synchronize()
+    for name, a, b, tol in (("fft", torch.view_as_real(spec_d), torch.view_as_real(spec_c),
+                             TOL_BLOCKS), ("ifft(fft) 1 s", rec_d, rec_c, TOL_GL),
+                            ("griffinlim 32", gl_d, gl_c, TOL_GL)):
+        limit = tol * max(1.0, float(b.abs().max())) if name == "fft" else \
+            tol * float(b.abs().max())
+        err = distance(a, b)[0]
+        rows.append(f"{name} {tuple(a.shape)} {err:.2e}/{limit:.1e}")
+        check(err <= limit, f"inventory: {name} card vs CPU {err:.3e} > {limit:.3e}")
+    print("  card vs CPU (TF32 off), max_abs_err/limit: " + "; ".join(rows) + f" {lap()}",
+          flush=True)
+
+    # -- 4. profiling on the card ------------------------------------------------------------
+    torch.cuda.synchronize()
+    zero_counts()
+    z = tail_input(1, 256, seed=256, device=dev)  # the times phase's serving shape
+    timer_ms = device_timer(fused_tail.fused_tail_stage, z, w16, reps=TIME_PER) * 1e3
+    vgen, c = cube.model.gen, cube.config.hifigan
+    mel = torch.randn(1, 256, 80, generator=g).to(dev)
+
+    def prefix(m, k):
+        return generator_apply_fused(vgen, m, c, compute_dtype=c.torch_compute_dtype,
+                                     storage_dtype=c.torch_storage_dtype,
+                                     fuse_channels=c.fuse_channels, max_stages=k)
+
+    with torch.inference_mode():
+        # the prefixes in turns, PREFIX_READINGS times, each reading TIME_PER calls: the
+        # plain stages launch ~100 kernels each and a single reading moves by ~10 %
+        readings = [[device_timer(prefix, mel, k, reps=TIME_PER) * 1e3 for k in range(5)]
+                    for _ in range(PREFIX_READINGS)]
+        prefix_ms = [statistics.median(r[k] for r in readings) for k in range(5)]
+        with deterministic():
+            last, whole = prefix(mel, 4), vgen.fused(mel)
+        torch.cuda.synchronize()
+        check(torch.equal(last, whole), "inventory: max_stages=4 differs from the whole "
+                                        "generator's output")
+        with trace(str(work / "trace")) as log_dir:
+            vgen.fused(mel)
+    prof_counts = read_counts()
+    with open(Path(log_dir) / "trace.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    b1_names = sorted(n for n in names if "tail_kernel" in n)
+    print(f"  device_timer(fused_tail_stage, bf16 B=1 F=256, reps={TIME_PER}) "
+          f"ms={timer_ms:.4f}; max_stages prefixes of the voice's generator at 256 frames "
+          f"(bf16 storage; medians of {PREFIX_READINGS} readings) ms: "
+          + ", ".join(f"{k}: {v:.3f}" for k, v in enumerate(prefix_ms))
+          + "; per stage ms: " + ", ".join(
+              f"{k}: {prefix_ms[k] - prefix_ms[k - 1]:.3f}" for k in range(1, 5))
+          + f"; prefix 4 equals the whole output; trace.json kernels {len(names)}, B1's: "
+          f"{b1_names}; launches {prof_counts} {lap()}", flush=True)
+    check(b1_names, f"inventory: the trace names no B1 kernel among {sorted(names)[:10]}")
+    out.update(timer_ms=timer_ms, prefix_ms=prefix_ms,
+               counts={k: story_counts[k] + prof_counts[k] for k in story_counts})
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1916,10 +2212,7 @@ def main() -> int:
 
     # -- device -------------------------------------------------------------------
     t0 = time.perf_counter()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    print(card_line(), flush=True)
     kind = torch.cuda.get_device_name(0)
     say("device", t0, name=json.dumps(kind), cuda=torch.version.cuda,
         torch=torch.__version__, count=torch.cuda.device_count())
@@ -2805,7 +3098,6 @@ def main() -> int:
     # -- legacy ---------------------------------------------------------------------------
     t0 = time.perf_counter()
     legacy_run = legacy_phase(work)
-    shutil.rmtree(work)
     say("legacy", t0, textcoder_step_ms=f"{legacy_run['textcoder']['step_ms']:.1f}",
         textcoder_busy_share=f"{legacy_run['textcoder']['busy']:.3f}",
         group_ms=f"{legacy_run['synth']['group_ms']:.3f}",
@@ -2814,6 +3106,17 @@ def main() -> int:
         vocoder_peak_gib=f"{legacy_run['vocoder']['peak_gb']:.2f}",
         infer_audio_s_per_s=f"{legacy_run['infer']['rate']:.4f}",
         infer_us_per_step=f"{legacy_run['infer']['us_per_step']:.1f}")
+
+    # -- inventory ------------------------------------------------------------------------
+    t0 = time.perf_counter()
+    inv_run = inventory_phase(work, gen, w16)
+    shutil.rmtree(work)
+    say("inventory", t0, story_ms=f"{inv_run['story']['ms']:.1f}",
+        story_audio_s_per_s=f"{inv_run['story']['rate']:.3f}",
+        ckpt_forced_ms=f"{inv_run['ckpt']['forced']['ms']:.1f}",
+        ckpt_free_ms=f"{inv_run['ckpt']['free']['ms']:.1f}",
+        timer_b1_ms=f"{inv_run['timer_ms']:.4f}",
+        launches_b1=inv_run["counts"]["fused_tail_stage"])
 
     # -- generator_resblock2 ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -3020,6 +3323,13 @@ def main() -> int:
               f"achieved={flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s = "
               f"{row['bound_ms'] / ms:.3f} of the bound", flush=True)
     del x32, w32c, xx, ww, x_nct, w_oik
+    b1_serve_ms = b1_rows[("bf16", "B=1 F=256")]["ms"]
+    ratio = inv_run["timer_ms"] / b1_serve_ms
+    print(f"  device_timer of B1 bf16 B=1 F=256 (inventory phase) ms={inv_run['timer_ms']:.4f} "
+          f"= {ratio:.3f} x this phase's median {b1_serve_ms:.4f} (limits {TIMER_RATIO})",
+          flush=True)
+    check(TIMER_RATIO[0] <= ratio <= TIMER_RATIO[1],
+          f"times: device_timer's B1 is {ratio:.3f} x the median")
     print(f"  train step B={TRAIN_BATCH} median_ms={statistics.median(step_ms[1:]):.1f} "
           f"(steps 2-{TRAIN_STEPS}, host clock, default TF32) first_ms={step_ms[0]:.1f}",
           flush=True)
@@ -3038,15 +3348,16 @@ def main() -> int:
     # launches on the main paths (warmup, serve, serve_wide, serve_batch whole and
     # chunked, train, train_bf16, trainer in fp32 and in bf16, the mesh's trainer and
     # synthesis, the phonemizer family's training and decoding, the exported voice's
-    # request, the LM-conditioned trainers, step and voices), each counted from zero just
-    # before its path ran
+    # request, the LM-conditioned trainers, step and voices, the story and the profiling
+    # hooks), each counted from zero just before its path ran
     paths = (warm_counts, serve_counts, wide_counts, batch_runs["whole"]["counts"],
              batch_runs["chunked"]["counts"], train_counts, bf16_counts, trainer_counts,
              trainer16_counts, mesh_run["counts"], ph_run["counts"], ie_run["counts"],
-             lm_run["counts"], legacy_run["counts"])
+             lm_run["counts"], legacy_run["counts"], inv_run["counts"])
     main_counts = {n: sum(c[n] for c in paths) for n in serve_counts}
     print(f"  main-path launches: {main_counts}; launches in the kernel phases: "
           f"{phase_launches}", flush=True)
+    print(card_line(), flush=True)  # again here, where the end of the output keeps it
     print(json.dumps({"kernels": [*[{
         "name": f"fused_tail_stage[{mode} {shape}]", "route": "cuda",
         "source": "ttscube_tpu_torch/csrc/fused_tail_stage.cu",

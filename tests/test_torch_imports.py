@@ -1,11 +1,12 @@
 """The port runs on a machine that has PyTorch and numpy but no JAX, flax, optax, yaml,
-msgpack, transformers, tokenizers, safetensors, PIL or tqdm. Every module of
+msgpack, transformers, tokenizers, safetensors, PIL, tqdm or requests. Every module of
 `ttscube_tpu_torch/` (its mesh in `parallel/`, `entry.py` and the scripts included),
 `chip_smoke.py`, `chip_variants.py` and `chip_probes.py` is parsed here: none may import
-JAX, flax, optax, yaml, msgpack, transformers, tokenizers, safetensors, PIL, tqdm or the
-JAX package `ttscube_tpu` anywhere (the port reads and writes its checkpoint files with
-its own `utils/serialization.py` and `utils/config_io.py`, its PNGs with zlib, and an
-HF directory's tokenizer.json and weights with `utils/hf.py` and `models/lm.py`)."""
+JAX, flax, optax, yaml, msgpack, transformers, tokenizers, safetensors, PIL, tqdm,
+requests or the JAX package `ttscube_tpu` anywhere (the port reads and writes its
+checkpoint files with its own `utils/serialization.py` and `utils/config_io.py`, its PNGs
+with zlib, an HF directory's tokenizer.json and weights with `utils/hf.py` and
+`models/lm.py`, and a voice's volumes with `urllib.request`)."""
 
 import ast
 import subprocess
@@ -18,7 +19,7 @@ ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "ttscube_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_variants.py", ROOT / "chip_probes.py"]
 NEVER = {"jax", "jaxlib", "flax", "optax", "ttscube_tpu", "PIL", "tqdm", "transformers",
-         "tokenizers", "safetensors"}
+         "tokenizers", "safetensors", "requests"}
 NOT_AT_MODULE_LEVEL = {"yaml", "msgpack"}
 
 
@@ -97,6 +98,9 @@ LEGACY_MODULES = ("ops.rnn", "ops.linear", "dsp.mulaw", "models.heads", "models.
                   "data.augment", "data.datasets", "data.legacy", "train.states",
                   "train.runtime", "convert", "utils.checkpoint", "scripts.train_textcoder",
                   "scripts.train_vocoder")
+# the rest of the inventory: StoryCube (it imports api, the repository, dsp and ops) and
+# profiling
+INVENTORY_MODULES = ("story", "utils.profiling")
 
 
 def test_the_phonemizer_family_is_checked():
@@ -114,15 +118,23 @@ def test_the_legacy_generation_is_checked():
     assert {f"ttscube_tpu_torch/{m.replace('.', '/')}.py" for m in LEGACY_MODULES} <= names
 
 
-@pytest.mark.parametrize("module", PHONEMIZER_MODULES + LM_MODULES + LEGACY_MODULES)
+def test_the_rest_of_the_inventory_is_checked():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"ttscube_tpu_torch/story.py", "ttscube_tpu_torch/utils/profiling.py",
+            "ttscube_tpu_torch/utils/repository.py", "ttscube_tpu_torch/dsp/__init__.py",
+            "ttscube_tpu_torch/ops/__init__.py"} <= names
+
+
+@pytest.mark.parametrize("module", PHONEMIZER_MODULES + LM_MODULES + LEGACY_MODULES
+                         + INVENTORY_MODULES)
 def test_imports_with_the_missing_packages_blocked(module):
-    """Each module of the phonemizer family, of LM conditioning and of the legacy
-    generation (Textcoder, the WaveRNN vocoder, their data and trainers) imports in a fresh
-    interpreter where jax, flax, optax, yaml, msgpack, transformers, tokenizers,
-    safetensors and ttscube_tpu cannot be imported (None in sys.modules makes an import
-    raise)."""
+    """Each module of the phonemizer family, of LM conditioning, of the legacy
+    generation (Textcoder, the WaveRNN vocoder, their data and trainers) and of the rest
+    of the inventory imports in a fresh interpreter where jax, flax, optax, yaml,
+    msgpack, transformers, tokenizers, safetensors, requests, PIL and ttscube_tpu cannot
+    be imported (None in sys.modules makes an import raise)."""
     blocked = ["jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "transformers",
-               "tokenizers", "safetensors", "ttscube_tpu"]
+               "tokenizers", "safetensors", "requests", "PIL", "ttscube_tpu"]
     code = ("import sys\n" + "".join(f"sys.modules[{b!r}] = None\n" for b in blocked)
             + f"import ttscube_tpu_torch.{module}\n"
             + "assert not any(m.split('.')[0] in %r for m in sys.modules if sys.modules[m])\n"

@@ -96,6 +96,19 @@ def assert_close(piece: str, got, want, atol: float) -> float:
     return diff
 
 
+def assert_trees_equal(a, b):
+    """Two nested dicts of arrays hold the same keys and bit-equal arrays of the same
+    type and shape."""
+    assert set(a) == set(b), (sorted(a), sorted(b))
+    for k in a:
+        if isinstance(a[k], dict):
+            assert_trees_equal(a[k], b[k])
+        else:
+            x, y = np.asarray(a[k]), np.asarray(b[k])
+            assert x.dtype == y.dtype and x.shape == y.shape, k
+            np.testing.assert_array_equal(x, y)
+
+
 # A step's grads and parameters against a reference step's (the mesh, the phonemizer and
 # G2P trainers): each grad within GRAD_TOL of the largest grad of the module that holds it;
 # after a first Adam step at most SHARE of the elements beyond SHARE_LR · lr, and none

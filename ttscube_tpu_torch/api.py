@@ -2,6 +2,7 @@
 
     cube = TTSCube("path/to/cubegan", "path/to/phonemizer")           # on the card
     cube = TTSCube("path/to/cubegan", "path/to/phonemizer", device="cpu")
+    cube = TTSCube.load("blizzard2023")   # a named voice from ~/.ttscube/models
     audio_int16 = cube("Hello world!", speaker="neb")
 
 Steps, as in the JAX class: text → aligned phonemizer → collate → duration pass (the
@@ -32,6 +33,7 @@ encoder at each token window a request can reach.
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -46,7 +48,7 @@ from ttscube_tpu_torch.models.hifigan import HifiganConfig
 from ttscube_tpu_torch.models.languasito import LanguasitoConfig
 from ttscube_tpu_torch.models.lm import LMConfig
 from ttscube_tpu_torch.models.phonemizer import Phonemizer, PhonemizerConfig
-from ttscube_tpu_torch.utils import config_io
+from ttscube_tpu_torch.utils import config_io, repository
 
 FRAME_BUCKET = 256
 MAX_FRAMES = 8192
@@ -139,6 +141,18 @@ class TTSCube:
         self = cls.__new__(cls)
         self._setup(config, encodings, phonemizer_encodings, model, pmodel, device)
         return self
+
+    @staticmethod
+    def load(model_name: str, device=None) -> "TTSCube":
+        """The named voice from `~/.ttscube/models/<model_name>`: its volumes are
+        fetched and unpacked there first (`utils/repository.download_model`) only where
+        `cubegan.model` is missing."""
+        base = Path.home() / ".ttscube" / "models" / model_name
+        device = resolve_device(device)  # raises before any fetch where CUDA is missing
+        if not (base / "cubegan.model").exists():
+            base.mkdir(parents=True, exist_ok=True)
+            repository.download_model(str(base), model_name)
+        return TTSCube(str(base / "cubegan"), str(base / "phonemizer"), device)
 
     def _setup(self, config, encodings, penc, model, pmodel, device, word_embedder=None,
                hf_frontend=None):

@@ -5,6 +5,7 @@ A JAX tree is a nested dict of numpy arrays, as flax keeps it ({"lang": ..., "ge
 pairs each leaf module with its subtree and applies the layout rules:
 
   * Conv1d kernel, SNConv1d kernel, WNConv1d v: (k, in, out) ↔ (out, in, k)
+  * ConvTranspose1d kernel: (k, out, in) ↔ (in, out, k)
   * WNConv2d v: (kh, kw, in, out) ↔ (out, in, kh, kw)
   * SNConv1d u: the JAX "spectral" collection ↔ the module's buffer `u`
   * WNConvTranspose1d v: (k, out, in) ↔ (in, out, k); its g is per input channel
@@ -34,8 +35,8 @@ import torch.nn as nn
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ttscube_tpu_torch.models.languasito import MaskedEmbed
-from ttscube_tpu_torch.ops.conv import (Conv1d, SNConv1d, WNConv1d, WNConv2d,
-                                        WNConvTranspose1d)
+from ttscube_tpu_torch.ops.conv import (Conv1d, ConvTranspose1d, SNConv1d, WNConv1d,
+                                        WNConv2d, WNConvTranspose1d)
 from ttscube_tpu_torch.ops.linear import BatchNorm, Dense, Embed, LayerNorm
 from ttscube_tpu_torch.ops.rnn import GRU, LSTM, GRUCell, LSTMCell
 from ttscube_tpu_torch.utils.serialization import msgpack_restore
@@ -48,7 +49,7 @@ def leaf_layout(mod: nn.Module) -> dict:
     """Each parameter of a leaf module that has a JAX counterpart: torch name → (JAX
     name, axes), where the torch tensor is `np.transpose(jax_array, axes)` (axes None:
     unchanged). An LSTM's `bias_hh` has none (it is kept at zero; see `_leaf_to_torch`)."""
-    if isinstance(mod, (Conv1d, SNConv1d)):
+    if isinstance(mod, (Conv1d, SNConv1d, ConvTranspose1d)):
         out = {"kernel": ("kernel", _T3)}
     elif isinstance(mod, (WNConv1d, WNConvTranspose1d)):
         out = {"v": ("v", _T3), "g": ("g", None)}
@@ -114,8 +115,8 @@ def _leaf_to_jax(mod: nn.Module, sd: dict) -> dict:
     return out
 
 
-_LEAVES = (Conv1d, SNConv1d, WNConv1d, WNConv2d, WNConvTranspose1d, Dense, Embed,
-           LayerNorm, BatchNorm, MaskedEmbed, LSTM, LSTMCell, GRU, GRUCell)
+_LEAVES = (Conv1d, ConvTranspose1d, SNConv1d, WNConv1d, WNConv2d, WNConvTranspose1d, Dense,
+           Embed, LayerNorm, BatchNorm, MaskedEmbed, LSTM, LSTMCell, GRU, GRUCell)
 # the buffers a leaf keeps beside its parameters, and their names in the JAX tree that
 # holds them ("spectral" for u, "batch_stats" for a BatchNorm's running averages)
 _BUFFERS = {SNConv1d: {"u": "u"}, BatchNorm: {"running_mean": "mean", "running_var": "var"}}

@@ -4,7 +4,13 @@
 The STFT is two matrix products against windowed DFT matrices, then the mel basis, as
 in the JAX module. The host-side constants (`hz_to_mel`, `mel_to_hz`, `mel_filterbank`,
 `hann_window`, `_dft_matrices`) are the port's own numpy copies: the JAX module imports
-jax. `fft`, `ifft` and `griffinlim` are not ported yet.
+jax.
+
+The inverse path (`preemphasis`, `MelSpec.fft`, `ifft`, `griffinlim`) follows the JAX
+module too: the complex STFT through the same DFT matrices, its inverse as an irfft
+matrix product and an overlap-add (`index_add_`) normalized by the summed squared
+window, and Griffin-Lim phase reconstruction from an initial phase drawn from an
+explicit `torch.Generator` or passed in.
 
 Two conventions:
   * "feature" mel: zero "center" padding of n_fft/2, |STFT|, slaney mel, log10 with a
@@ -105,6 +111,12 @@ def frame_signal(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     return y.unfold(-1, n_fft, hop)
 
 
+def preemphasis(y: torch.Tensor, coef: float = 0.97) -> torch.Tensor:
+    """y[n] − coef · y[n − 1], with y[−1] = 0."""
+    prev = torch.cat([torch.zeros_like(y[..., :1]), y[..., :-1]], dim=-1)
+    return y - coef * prev
+
+
 @dataclasses.dataclass(frozen=True)
 class MelConfig:
     sample_rate: int = 24000
@@ -147,6 +159,25 @@ class MelSpec:
             torch.from_numpy(cos_m), torch.from_numpy(sin_m),
             torch.from_numpy(np.ascontiguousarray(
                 mel_filterbank(c.sample_rate, c.n_fft, c.n_mels, c.fmin, c.fmax).T)))}
+        self._inverse = {}
+
+    def _inverse_on(self, device):
+        """(irfft cos matrix (n_freq, n_fft), its sin matrix, the window (win_length,)),
+        fp32 on `device`: the JAX `_istft`'s constants."""
+        if device not in self._inverse:
+            c = self.config
+            n = np.arange(c.n_fft)[:, None]
+            k = np.arange(1 + c.n_fft // 2)[None, :]
+            ang = 2.0 * np.pi * n * k / c.n_fft
+            scale = np.full((1, 1 + c.n_fft // 2), 2.0 / c.n_fft)
+            scale[0, 0] = scale[0, -1] = 1.0 / c.n_fft
+            icos = (np.cos(ang) * scale).astype(np.float32)
+            isin = (-np.sin(ang) * scale).astype(np.float32)
+            window = hann_window(c.win_length).astype(np.float32)
+            self._inverse[device] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in (icos.T, isin.T, window))
+        return self._inverse[device]
 
     def _on(self, device):
         if device not in self._consts:
@@ -187,3 +218,69 @@ class MelSpec:
         if c.log_scale == "ln":
             return torch.log(torch.clamp(mel, min=1e-5)).float()
         raise ValueError(f"unknown log scale {c.log_scale}")
+
+    # -- the inverse path (Griffin-Lim) ----------------------------------------------------
+
+    def _stft(self, y: torch.Tensor):
+        c = self.config
+        cos_m, sin_m, _ = self._on(y.device)
+        frames = frame_signal(y.float(), c.n_fft, c.hop_length)
+        return frames @ cos_m, frames @ sin_m
+
+    def fft(self, y: torch.Tensor, use_preemphasis: bool = True) -> torch.Tensor:
+        """Complex STFT (..., frames, n_freq), complex64, of the padded signal
+        (preemphasis first by default, as the JAX method)."""
+        if use_preemphasis:
+            y = preemphasis(y)
+        re, im = self._stft(self._pad(y))
+        return torch.complex(re, im)
+
+    def ifft(self, spec: torch.Tensor, out_len: int | None = None) -> torch.Tensor:
+        """The inverse of `fft` by overlap-add: spec (..., frames, n_freq) complex →
+        (..., out_len), out_len (frames − 1)·hop by default."""
+        n = out_len if out_len is not None else (spec.shape[-2] - 1) * self.config.hop_length
+        return self._istft(spec.real, spec.imag, n)
+
+    def _istft(self, re: torch.Tensor, im: torch.Tensor, out_len: int) -> torch.Tensor:
+        """(..., frames, n_freq) real and imaginary parts → the time signal: irfft as a
+        matrix product, the window, the frames' overlap-add (`index_add_`) divided by the
+        squared window's, and the n_fft // 2 padding cut off."""
+        c = self.config
+        icos_t, isin_t, window = self._inverse_on(re.device)
+        frames = (re @ icos_t + im @ isin_t) * window
+        num_frames = frames.shape[-2]
+        total = (num_frames - 1) * c.hop_length + c.n_fft
+        idx = (torch.arange(num_frames, device=re.device)[:, None] * c.hop_length
+               + torch.arange(c.n_fft, device=re.device)[None, :]).reshape(-1)
+        lead = frames.shape[:-2]
+        sig = torch.zeros(*lead, total, device=re.device).index_add_(
+            -1, idx, frames.reshape(*lead, -1))
+        wsq = torch.zeros(total, device=re.device).index_add_(
+            0, idx, (window * window).repeat(num_frames))
+        sig = sig / torch.clamp(wsq, min=1e-8)
+        p = c.n_fft // 2
+        return sig[..., p: p + out_len]
+
+    def griffinlim(self, magnitude: torch.Tensor, n_iter: int = 32, phase=None,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+        """Phase reconstruction from a (..., frames, n_freq) magnitude spectrogram:
+        (..., (frames − 1)·hop) samples. The initial phase is `phase`, or uniform on
+        [0, 2π) drawn from `generator` (on its own device; a CPU generator seeded 0 by
+        default) and moved to the magnitude's device."""
+        c = self.config
+        magnitude = magnitude.float()
+        out_len = (magnitude.shape[-2] - 1) * c.hop_length
+        if phase is None:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            phase = torch.rand(magnitude.shape, generator=generator,
+                               device=generator.device) * (2 * np.pi)
+        phase = phase.to(magnitude.device, torch.float32)
+        re, im = magnitude * torch.cos(phase), magnitude * torch.sin(phase)
+        p = c.n_fft // 2
+        for _ in range(n_iter):
+            sig = F.pad(self._istft(re, im, out_len), (p, p))
+            nre, nim = self._stft(sig)
+            mag = torch.sqrt(nre * nre + nim * nim + 1e-12)
+            re, im = magnitude * nre / mag, magnitude * nim / mag
+        return self._istft(re, im, out_len)

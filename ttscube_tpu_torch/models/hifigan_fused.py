@@ -91,15 +91,22 @@ def _plain_resblock1(x, block, compute_dtype=None, storage_dtype=None):
 
 def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
                           compute_dtype=None, fuse_channels: tuple = (32,),
-                          storage_dtype=None) -> torch.Tensor:
+                          storage_dtype=None, max_stages: int | None = None) -> torch.Tensor:
     """mel/cond (B, frames, num_mels) → audio (B, frames·total_upsample) fp32.
 
     Unlike the JAX function, every batch size takes the fused stages: its cut-off at
-    B > 64 (`fuse_max_batch`) was measured on the TPU."""
+    B > 64 (`fuse_max_batch`) was measured on the TPU.
+
+    `max_stages` is the JAX function's profiling hook: the activation after that many
+    upsample stages (0: after conv_pre) in place of the audio, so that a stage's cost
+    is the time of prefix k less that of prefix k − 1. As in the JAX function, a last
+    stage that runs fused (B1) returns the audio, whatever `max_stages` says."""
     _require_resblock1(cfg, "generator_apply_fused")
     if storage_dtype is not None and compute_dtype is None:
         compute_dtype = storage_dtype
     x = _st(_conv(mel, gen.conv_pre, compute_dtype, padding=3), storage_dtype)
+    if max_stages == 0:
+        return x
     ch = cfg.upsample_initial_channel
     n_stages = len(cfg.upsample_rates)
     n_blocks = len(cfg.resblock_kernel_sizes)
@@ -112,6 +119,8 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
                 audio = fused_tail_stage(x.float().contiguous(), w)
                 return audio[:, : mel.shape[1] * cfg.total_upsample]
             x = _st(fused_tail_stage_mid(x.float().contiguous(), w), storage_dtype)
+            if max_stages == i + 1:
+                return x
             continue
         up = getattr(gen, f"up_{i}")
         x = _upsample(x, up, u, k, compute_dtype, storage_dtype)
@@ -121,12 +130,15 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
             # the whole MRF (every chain and their mean) as one kernel
             x = _st(fused_mrf1(x.float().contiguous(), gen.stage_weights(i, compute_dtype)),
                     storage_dtype)
-            continue
-        acc = None
-        for j in range(n_blocks):
-            h = _plain_resblock1(x, getattr(gen, f"res_{i}_{j}"), compute_dtype, storage_dtype)
-            acc = h if acc is None else acc + h
-        x = acc / n_blocks
+        else:
+            acc = None
+            for j in range(n_blocks):
+                h = _plain_resblock1(x, getattr(gen, f"res_{i}_{j}"), compute_dtype,
+                                     storage_dtype)
+                acc = h if acc is None else acc + h
+            x = acc / n_blocks
+        if max_stages == i + 1:
+            return x
     # final act/conv/tanh stay fp32, as in Generator
     x = F.leaky_relu(x.float(), 0.01)
     audio = torch.tanh(_conv(x, gen.conv_post, None, padding=3))[..., 0]

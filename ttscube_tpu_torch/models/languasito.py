@@ -1,6 +1,7 @@
 """Languasito2, counterpart of `ttscube_tpu/models/languasito.py`: the two-tower text
 encoder that predicts durations, pitch and VUV and builds the 80-d frame-level
-conditioning for the generator.
+conditioning for the generator; and `Languasito`, the single-tower v1 it superseded
+(part of the inventory, instantiated by no live path of either package).
 
 With LM conditioning (`cond_type` "fasttext" or "hf") each tower also runs a BiLSTM
 (`lm`, 2 layers of 256) over the word vectors `x_words` (B, W, lm_input_dim), gathers
@@ -88,6 +89,12 @@ class _Tower(nn.Module):
             self.lm = LSTM(c.lm_input_dim, EXTERNAL_COND // 2, num_layers=2,
                            bidirectional=True)
 
+    @staticmethod
+    def width(c: LanguasitoConfig) -> int:
+        """The tower's output features."""
+        return 2 * CHAR_RNN_SIZE + SPEAKER_EMB_SIZE + (
+            EXTERNAL_COND if c.cond_type is not None else 0)
+
     def forward(self, x_char, x_speaker, x_words=None, x_phon2word=None):
         h = self.phon_emb(x_char)
         for i in range(CHAR_CNN_NL):
@@ -109,8 +116,7 @@ class Languasito2(nn.Module):
     def __init__(self, config: LanguasitoConfig):
         super().__init__()
         c = self.config = config
-        tower_out = 2 * CHAR_RNN_SIZE + SPEAKER_EMB_SIZE + (
-            EXTERNAL_COND if c.cond_type is not None else 0)
+        tower_out = _Tower.width(c)
         self.tower_t = _Tower(c)
         self.tower_g = _Tower(c)
         self.dur_rnn = LSTM(tower_out, DUR_RNN_SIZE, num_layers=DUR_RNN_LAYERS,
@@ -171,6 +177,43 @@ class Languasito2(nn.Module):
         cond = self.cond_forward(X, frame2phone, pitch)
         return cond, {"durations": durs, "pitch": pitch, "vuv": vuv,
                       "frame2phone": frame2phone, "frame_mask": frame_mask}
+
+
+class Languasito(nn.Module):
+    """Languasito v1: one shared tower; durations from `dur_rnn`; at frame rate the
+    `rnn_overlay` BiLSTM (512) feeds a classification pitch head (`int(max_pitch) + 1`
+    ways, through `pitch_rnn`) and, with the pitch over max_pitch appended, the
+    conditioning BiLSTM `rnn_cond` and its 80-d output."""
+
+    def __init__(self, config: LanguasitoConfig):
+        super().__init__()
+        c = self.config = config
+        tower_out = _Tower.width(c)
+        self.tower = _Tower(c)
+        self.dur_rnn = LSTM(tower_out, DUR_RNN_SIZE, num_layers=DUR_RNN_LAYERS,
+                            bidirectional=True)
+        self.dur_output = Dense(2 * DUR_RNN_SIZE, c.max_duration + 1)
+        self.rnn_overlay = LSTM(tower_out, 512, num_layers=1, bidirectional=True)
+        self.pitch_rnn = LSTM(1024, PITCH_RNN_SIZE, num_layers=1, bidirectional=True)
+        self.pitch_output = Dense(2 * PITCH_RNN_SIZE, int(c.max_pitch) + 1)
+        self.rnn_cond = LSTM(1024 + 1, 256, num_layers=1, bidirectional=True)
+        self.cond_output = Dense(512, COND_SIZE)
+
+    def forward(self, X, frame2phone=None, pitch=None):
+        """Returns (dur_logits (B, N, max_duration + 1), pitch_logits (B, F,
+        int(max_pitch) + 1), cond (B, F, 80)); `frame2phone` and `pitch` default to the
+        batch's `y_frame2phone` and `y_pitch`."""
+        h = Languasito2._tower(self.tower, X)
+        dur_logits = self.dur_output(self.dur_rnn(h)[0])
+        if frame2phone is None:
+            frame2phone = X["y_frame2phone"]
+        overlay = self.rnn_overlay(regulate_length(h, frame2phone.long()))[0]
+        pitch_logits = self.pitch_output(self.pitch_rnn(overlay)[0])
+        if pitch is None:
+            pitch = X["y_pitch"]
+        hc = torch.cat([overlay, (pitch / self.config.max_pitch)[:, :, None]], dim=-1)
+        cond = self.cond_output(self.rnn_cond(hc)[0])
+        return dur_logits, pitch_logits, cond
 
 
 def languasito_losses(dur_logits, pitch, vuv, batch, max_pitch: float):

@@ -143,6 +143,29 @@ class WNConv1d(nn.Module):
         return y + self.bias if self.bias is not None else y
 
 
+class ConvTranspose1d(nn.Module):
+    """Plain transposed Conv1d, PyTorch semantics: out_len = (T−1)·stride − 2·padding +
+    kernel (JAX `ConvTranspose1d`). `kernel` is PyTorch's (in, out, k), the JAX
+    module's (k, out, in) transposed by `ttscube_tpu_torch.convert`."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int, stride: int,
+                 padding: int = 0, use_bias: bool = True):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.kernel = nn.Parameter(torch.zeros(in_channels, features, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def init_weights(self, gen: torch.Generator):
+        # JAX: kernel ~ U(±1/√(in·k)), zero bias
+        fin, _, k = self.kernel.shape
+        scale = 1.0 / math.sqrt(fin * k)
+        with torch.no_grad():
+            self.kernel.uniform_(-scale, scale, generator=gen)
+
+    def forward(self, x):
+        return conv_transpose1d(x, self.kernel, self.bias, self.stride, self.padding)
+
+
 class WNConvTranspose1d(nn.Module):
     """Weight-normalized ConvTranspose1d; `g` is per INPUT channel (the norm of PyTorch's
     (in, out, k) weight over dims 1, 2), as in the JAX module."""

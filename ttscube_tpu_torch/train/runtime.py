@@ -1,8 +1,8 @@
 """Devset synthesis and spectrogram images: counterpart of
 `ttscube_tpu/train/runtime.py`'s `cubegan_synthesize_dataset` (the Cubegan trainer's
-epoch hook), `synthesize_devset` (Textcoder's mel through a HiFi-GAN generator) and
-`render_spectrogram` (the corpus importer's PNG). Not ported:
-`synthesize_from_checkpoint`."""
+epoch hook), `synthesize_from_checkpoint` (the same from a trainer's files: a quality
+drive's synthesis from its final weights), `synthesize_devset` (Textcoder's mel through
+a HiFi-GAN generator) and `render_spectrogram` (the corpus importer's PNG)."""
 
 from __future__ import annotations
 
@@ -49,6 +49,64 @@ def cubegan_synthesize_dataset(model, dataset, collate, output_path: str, limit:
         if is_writer():  # over a mesh every rank synthesizes (a collective), rank 0 writes
             write_wav(os.path.join(output_path, f"{example['meta']['id']}.wav"),
                       np.asarray(audio), model.config.sample_rate)
+
+
+def cubegan_from_checkpoint(base: str, dev_folder: str, which: str = ".last", device=None):
+    """(model, dataset, collate) of a trainer's files: a Cubegan rebuilt from
+    `{base}.yaml`, `{base}.encodings` and the `lang`, `gen` and, with HF conditioning,
+    `hf` subtrees of `{base}{which}`, on `device` (the card unless the CPU is asked for);
+    the dataset of `dev_folder`; and the collate the trainer builds. The yaml's
+    `conditioning` spec (`hf:<dir>` or `fasttext:<table>`) is read by the trainer's own
+    readers. As in the JAX function, the generator is the plain one (HifiganConfig's
+    defaults: no fused tail, fp32)."""
+    from ttscube_tpu_torch import resolve_device
+    from ttscube_tpu_torch.api import lm_config_from_yaml
+    from ttscube_tpu_torch.convert import load_jax_params, read_msgpack
+    from ttscube_tpu_torch.data.collate import CubeganCollate
+    from ttscube_tpu_torch.data.datasets import CubeganDataset
+    from ttscube_tpu_torch.data.encodings import CubeganEncodings
+    from ttscube_tpu_torch.models.cubegan import Cubegan, CubeganConfig
+    from ttscube_tpu_torch.models.languasito import LanguasitoConfig
+    from ttscube_tpu_torch.scripts.train_cubegan import lm_setup
+    from ttscube_tpu_torch.utils.checkpoint import load_config
+    from ttscube_tpu_torch.utils.wordvec import make_word_embedder
+
+    device = resolve_device(device)
+    conf = load_config(base)
+    spec = conf.get("conditioning")
+    cond_type, _, _, hf_tokenizer = lm_setup(spec)
+    lm_config = lm_config_from_yaml(conf)  # the yaml's, as the JAX function reads it
+    encodings = CubeganEncodings(base + ".encodings")
+    cfg = CubeganConfig(
+        languasito=LanguasitoConfig(
+            num_phones=len(encodings.phon2int), num_speakers=len(encodings.speaker2int),
+            max_pitch=encodings.max_pitch, max_duration=encodings.max_duration,
+            cond_type=cond_type,
+            lm_dim=lm_config.hidden_size if lm_config is not None else None),
+        sample_rate=conf.get("sample_rate", 24000), hop_size=conf.get("hop_size", 240))
+    tree = read_msgpack(base + which)
+    model = load_jax_params(Cubegan(cfg, lm_config=lm_config),
+                            {k: tree[k] for k in ("lang", "gen", "hf") if k in tree})
+    hf_cond = cond_type == "hf"
+    dataset = CubeganDataset(dev_folder, hf_tokenizer=hf_tokenizer,
+                             hop_size=cfg.hop_size, sample_rate=cfg.sample_rate)
+    collate = CubeganCollate(encodings, word_embedder=make_word_embedder(spec),
+                             hop=cfg.hop_size, hf_conditioning=hf_cond,
+                             bucket_tokens=512 if hf_cond else 64,
+                             bucket_words=8 if hf_cond else 1)
+    return model.to(device).eval(), dataset, collate
+
+
+def synthesize_from_checkpoint(base: str, dev_folder: str, out_folder: str, limit: int = -1,
+                               free: bool = True, which: str = ".last", device=None):
+    """Synthesize the first `limit` utterances of `dev_folder` into `out_folder`, free
+    (`free=True`) or forced, with the Cubegan that `cubegan_from_checkpoint` rebuilds
+    from `{base}.yaml`, `{base}.encodings` and `{base}{which}`: a quality drive's
+    synthesis from a run's final weights, whatever the trainer's epoch hook did. Runs on
+    the card unless `device` says otherwise; returns the model."""
+    model, dataset, collate = cubegan_from_checkpoint(base, dev_folder, which, device)
+    cubegan_synthesize_dataset(model, dataset, collate, out_folder, limit=limit, free=free)
+    return model
 
 
 def synthesize_devset(textcoder, generator, dataset, collate, output_path: str,
