@@ -88,6 +88,17 @@ Phases, each printing one line with its seconds as it ends:
               trained, and one request through TTSCube from the exported volumes on the
               card (B1 once); the import's seconds per audio second by part, the
               export's seconds, the request's ms
+  quality     the exported voice scored: 2 dev utterances of each speaker synthesised by
+              that TTSCube on the card (B1 once per request) beside their originals; the
+              port's eval_drive_quality on them on the card and with --device cpu (per
+              pair MCD-DTW within 0.01 dB, F0-RMSE and duration error equal, VUV error
+              within 1 point, log-mels within 1e-5 of the peak in linear mel; pairs whose
+              DTW path differs; ms per pair by part); Text2Feat with the phonemizer phase's
+              word G2P on the card as its hook and a 2-word Lexicon, equal to the same on
+              the CPU, the lexicon's words never passed to the hook, words per second;
+              patch over a copy of the dev folder (.pitch lengths equal to the importer's);
+              the numpy twin of durations_to_frame2phone equal to the torch function on the
+              card at B = 128, F = 512; within 60 s
   lm          HF and fastText conditioning at full width on import_export's corpus:
               make_demo_lm writes a BERT-base directory (768 wide, 12 layers, 12 heads,
               vocabulary 30,522, seeded) and a 2-layer one at the same width for the CLI
@@ -260,6 +271,22 @@ LANG_V1 = (4, 64, 400)
 BLOCKS_T = 400
 TOL_BLOCKS = 1e-5  # of each output's range (the CPU tests' block tolerance)
 TOL_GL = 1e-4      # of the signal's peak: ifft(fft) and Griffin-Lim, card against CPU
+# quality: QUALITY_PER_SPEAKER dev utterances of each speaker of import_export's folder
+# served by its exported voice and scored by the port's eval_drive_quality on the card and
+# on the CPU: a pair's MCD-DTW within TOL_MCD dB, its VUV error within TOL_VUV percentage
+# points, the log-mels within TOL_MEL of the peak in linear mel; Text2Feat with the
+# phonemizer phase's word G2P as its hook and a Lexicon over QUALITY_LEXICON on REQUESTS
+# and QUALITY_TEXT (which holds the lexicon's words); the numpy twin of
+# durations_to_frame2phone at bench.py's TWIN_SHAPE (B, N, F); the phase within
+# QUALITY_BUDGET_S seconds
+QUALITY_PER_SPEAKER = 2
+TOL_MCD = 0.01
+TOL_VUV = 1.0
+TOL_MEL = 1e-5
+QUALITY_LEXICON = {"ukela": ["U", "K", "E", "L", "A"], "mirade": ["M", "I", "_", "R", "A"]}
+QUALITY_TEXT = "Ukela sano, mirade tivo.\nUKELA muna ama nevika; Mirade lori!"
+TWIN_SHAPE = (128, 100, 512)
+QUALITY_BUDGET_S = 60.0
 TIMER_RATIO = (0.5, 2.0)
 PREFIX_READINGS = 5
 # C7: the first request after TTSCube.warmup, at most this many times the same request's
@@ -1358,7 +1385,214 @@ def import_export_phase(work: Path, pbase: str) -> dict:
           f"{len(pcm)} samples, launches {counts}", flush=True)
     check(pcm.dtype == np.int16 and len(pcm) > 0 and counts["fused_tail_stage"] == 1,
           "import_export: the exported voice did not serve through B1")
-    return dict(counts=counts, per_audio_s=per, export_s=export_s, request_ms=request_ms)
+    return dict(counts=counts, per_audio_s=per, export_s=export_s, request_ms=request_ms,
+                cube=cube)
+
+
+def quality_phase(work: Path, cube) -> dict:
+    """The served voice scored on the card, with the word-level front end and the host
+    twin of length regulation, on what import_export and phonemizer left in `work`:
+    QUALITY_PER_SPEAKER dev utterances of each speaker of `work/card/dev` synthesised by
+    `cube` (import_export's TTSCube over the exported volumes, on the card; B1 once per
+    request), written with their imported originals as orig_/synth_ pairs into
+    `work/quality`; the port's eval_drive_quality on that folder on the card and on a copy
+    with --device cpu (per pair MCD-DTW within TOL_MCD, F0-RMSE equal, VUV error within
+    TOL_VUV points, duration error equal; the log-mels within TOL_MEL of the peak in
+    linear mel; the pairs whose DTW path differs counted; ms per pair by part);
+    Text2Feat with the word G2P of the phonemizer phase loaded on the card as its hook and
+    a Lexicon over QUALITY_LEXICON, on REQUESTS and QUALITY_TEXT, against the same with
+    the G2P on the CPU (TF32 off; equal results, the lexicon's phones on its words, none
+    of them passed to the hook; words per second under the default settings); patch over
+    a copy of the dev folder (each .pitch as long as the importer's, the share of frames
+    whose voicing or F0 differs printed); the numpy twin of durations_to_frame2phone
+    against the torch function on the card at TWIN_SHAPE. Returns the synthesis'
+    launches and the numbers to print."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ttscube_tpu_torch.data.text import Lexicon, SimpleTokenizer, Text2Feat
+    from ttscube_tpu_torch.dsp.pitch import rapt_pitch
+    from ttscube_tpu_torch.models.g2p import G2P
+    from ttscube_tpu_torch.ops.length_regulator import (durations_to_frame2phone,
+                                                        durations_to_frame2phone_np)
+    from ttscube_tpu_torch.scripts import eval_drive_quality, patch
+    from ttscube_tpu_torch.utils.wavio import read_wav, write_wav
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    dev_dir = work / "card" / "dev"
+    items = [json.loads(f.read_text()) for f in sorted(dev_dir.glob("*.json"))]
+    speakers = sorted({it["speaker"] for it in items})
+    chosen = [it for spk in speakers
+              for it in [i for i in items if i["speaker"] == spk][:QUALITY_PER_SPEAKER]]
+    check(len(speakers) == 2 and len(chosen) == 2 * QUALITY_PER_SPEAKER,
+          f"quality: {len(chosen)} dev utterances of speakers {speakers}")
+
+    # synthesis: one request per utterance through TTSCube on the card
+    qdir = work / "quality"
+    qdir.mkdir()
+    synth_ms = []
+    torch.cuda.synchronize()
+    zero_counts()
+    for it in chosen:
+        uid = it["id"]
+        shutil.copyfile(dev_dir / f"{uid}.wav", qdir / f"orig_{uid}.wav")
+        sr = read_wav(str(dev_dir / f"{uid}.wav"))[1]
+        t1 = time.perf_counter()
+        pcm = cube(it["orig_text"], speaker=it["speaker"])
+        synth_ms.append((time.perf_counter() - t1) * 1e3)
+        check(pcm.dtype == np.int16 and len(pcm) > 0, f"quality: request {uid}")
+        write_wav(str(qdir / f"synth_{uid}.wav"), pcm, sr)
+    counts = read_counts()
+    print(f"  synthesised {len(chosen)} dev utterances ({', '.join(it['id'] for it in chosen)}) "
+          f"through TTSCube on {cube.device}: ms {', '.join(f'{v:.1f}' for v in synth_ms)}; "
+          f"launches {counts}", flush=True)
+    check(counts["fused_tail_stage"] == len(chosen),
+          f"quality: B1 launched {counts['fused_tail_stage']} times for {len(chosen)} requests")
+
+    # scoring: the port's script on the card, then on a copy with --device cpu
+    cpu_dir = work / "quality_cpu"
+    cpu_dir.mkdir()
+    for f in qdir.glob("*.wav"):
+        shutil.copyfile(f, cpu_dir / f.name)
+    t1 = time.perf_counter()
+    card_sum = eval_drive_quality.main(["--dir", str(qdir), "--protocol", ""])
+    card_s = time.perf_counter() - t1
+    cpu_sum = eval_drive_quality.main(["--dir", str(cpu_dir), "--protocol", "",
+                                       "--device", "cpu"])
+    rows = {r["id"]: r for r in cpu_sum["pairs"]}
+    check(sorted(rows) == sorted(r["id"] for r in card_sum["pairs"]) == sorted(
+        it["id"] for it in chosen), "quality: the scored pairs")
+    mcd_err = max(abs(r["mcd_dtw_db"] - rows[r["id"]]["mcd_dtw_db"]) for r in card_sum["pairs"])
+    vuv_err = max(abs(r["vuv_error_pct"] - rows[r["id"]]["vuv_error_pct"])
+                  for r in card_sum["pairs"])
+    same_f0_dur = all(r["f0_rmse_hz"] == rows[r["id"]]["f0_rmse_hz"] and r["dur_error_pct"] ==
+                      rows[r["id"]]["dur_error_pct"] for r in card_sum["pairs"])
+    # each pair again by part, the card's log-mels and DTW path beside the CPU's
+    parts = {"mel": [], "rapt": [], "dtw": [], "pair": []}
+    paths_differ, mel_err = 0, 0.0
+    for uid in sorted(rows):
+        t_pair = time.perf_counter()
+        wavs = [read_wav(str(qdir / f"{kind}_{uid}.wav")) for kind in ("orig", "synth")]
+        t1 = time.perf_counter()
+        mels = [eval_drive_quality.log_mel(w, r, dev) for w, r in wavs]
+        t2 = time.perf_counter()
+        f0 = [rapt_pitch(w, sr=r) for w, r in wavs]
+        t3 = time.perf_counter()
+        _, path = eval_drive_quality.mcd_dtw(*mels)
+        eval_drive_quality.f0_metrics(*f0, path)
+        t4 = time.perf_counter()
+        for k, v in (("mel", t2 - t1), ("rapt", t3 - t2), ("dtw", t4 - t3), ("pair", t4 - t_pair)):
+            parts[k].append(v * 1e3)
+        cpu_mels = [eval_drive_quality.log_mel(w, r, "cpu") for w, r in wavs]
+        paths_differ += eval_drive_quality.mcd_dtw(*cpu_mels)[1] != path
+        for a, b in zip(mels, cpu_mels):
+            la, lb = 10.0 ** a.astype(np.float64), 10.0 ** b.astype(np.float64)
+            mel_err = max(mel_err, float(np.abs(la - lb).max() / lb.max()))
+    per_pair = {k: statistics.median(v) for k, v in parts.items()}
+    print(f"  eval_drive_quality on {len(rows)} pairs: card {card_s:.2f} s, mean MCD-DTW "
+          f"{card_sum['mean_mcd_dtw_db']} dB (CPU {cpu_sum['mean_mcd_dtw_db']}), chance floor "
+          f"{card_sum['calibration']['chance_floor_mcd_dtw_db']} dB, mean F0-RMSE "
+          f"{card_sum['mean_f0_rmse_hz']} Hz, VUV {card_sum['mean_vuv_error_pct']} %, duration "
+          f"{card_sum['mean_dur_error_pct']} %, voiced {card_sum['mean_voiced_ratio_synth']}; "
+          f"card vs CPU: MCD max diff {mcd_err:.4f} dB tol={TOL_MCD}, F0-RMSE and duration "
+          f"equal: {same_f0_dur}, VUV max diff {vuv_err:.2f} points tol={TOL_VUV}, log-mels "
+          f"max_abs_err {mel_err:.3e} of the peak (linear) tol={TOL_MEL:.0e}, pairs whose DTW "
+          f"path differs: {paths_differ}; ms per pair (median of {len(rows)}, host clock): "
+          f"mel on the card {per_pair['mel']:.2f}, RAPT {per_pair['rapt']:.2f}, DTW "
+          f"{per_pair['dtw']:.2f}, whole pair {per_pair['pair']:.2f}", flush=True)
+    check(mcd_err <= TOL_MCD and same_f0_dur and vuv_err <= TOL_VUV and mel_err <= TOL_MEL,
+          "quality: the card's scores differ from the CPU's")
+
+    # Text2Feat with the word G2P on the card as its hook, against the same on the CPU
+    gbase = str(work / "g2p" / "g2p")
+    g2ps = {"card": G2P(), "cpu": G2P("cpu")}
+    for g in g2ps.values():
+        g.load(gbase, load_last=True)
+    lexicon = Lexicon()
+    lexicon.word2phones = QUALITY_LEXICON
+    calls = []
+
+    def hook(g):
+        def transcribe(words):
+            calls.append(list(words))
+            return g.transcribe(words)
+        return transcribe
+
+    t2f = {k: Text2Feat(hook(g), lexicon) for k, g in g2ps.items()}
+    texts = REQUESTS + (QUALITY_TEXT,)
+    with no_tf32():
+        got = [t2f["card"](t) for t in texts]
+    want = [t2f["cpu"](t) for t in texts]
+    n_words = sum(t.is_word for text in texts for t in SimpleTokenizer()(text))
+    t2f_s = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        for t in texts:
+            t2f["card"](t)
+        torch.cuda.synchronize()
+        t2f_s.append(time.perf_counter() - t1)
+    words_per_s = n_words / statistics.median(t2f_s)
+    seen = {w.lower() for c in calls for w in c}
+    # each lexicon word's phones: the lexicon's, its '_' dropped
+    lex_words = [([p for p, k in zip(o["phones"], o["phon2word"]) if k == i], w.lower())
+                 for o in got for i, w in enumerate(o["words"]) if w in lexicon]
+    n_lex = len(lex_words)
+    print(f"  Text2Feat on the card (the phonemizer phase's word G2P, {g2ps['card'].device}, as "
+          f"the hook; a Lexicon over {sorted(QUALITY_LEXICON)}) on {len(texts)} texts, "
+          f"{n_words} words: equal to the CPU's: {got == want}; {len(calls)} hook calls, "
+          f"lexicon words among them: {sorted(seen & set(QUALITY_LEXICON))}; {n_lex} lexicon "
+          f"words in the texts; {words_per_s:.0f} words/s (median of 3 passes, host clock)",
+          flush=True)
+    check(got == want, "quality: Text2Feat on the card differs from the CPU's")
+    check(not seen & set(QUALITY_LEXICON) and n_lex > 0 and all(
+        ph == [p for p in QUALITY_LEXICON[w] if p != "_"] for ph, w in lex_words),
+          "quality: the lexicon did not override the hook")
+
+    # patch over a copy of the dev folder, against the importer's .pitch files
+    pdir = work / "patch_dev"
+    shutil.copytree(dev_dir, pdir)
+    t1 = time.perf_counter()
+    done = patch.main(["--folder", str(pdir)])
+    patch_s = time.perf_counter() - t1
+    frames = voicing = f0_diff = 0
+    for base in done:
+        name = Path(base).name
+        a, b = np.load(dev_dir / f"{name}.pitch"), np.load(pdir / f"{name}.pitch")
+        check(a.shape == b.shape, f"quality: patch's {name}.pitch {b.shape} against the "
+              f"importer's {a.shape}")
+        frames += len(a)
+        voicing += int(((a > 0) != (b > 0)).sum())
+        f0_diff += int((a != b).sum())
+    check(len(done) == len(items), f"quality: patch wrote {len(done)} of {len(items)}")
+    print(f"  patch over {len(done)} dev wavs in {patch_s:.2f} s: every .pitch as long as the "
+          f"importer's; of {frames} frames, voicing differs in {voicing / frames:.4f}, F0 in "
+          f"{f0_diff / frames:.4f} (the importer tracks the float segment, patch the int16 "
+          f".wav)", flush=True)
+
+    # the numpy twin against the torch function on the card, at bench.py's shape
+    B, N, F = TWIN_SHAPE
+    rng = np.random.default_rng(SEED)
+    n_valid = rng.integers(1, N + 1, B).astype(np.int32)
+    durs = rng.integers(2, 12, (B, N)).astype(np.int32)  # some rows longer than F
+    durs[np.arange(N)[None, :] >= n_valid[:, None]] = 0
+    f2p, mask = durations_to_frame2phone_np(durs, n_valid, F)
+    tf2p, tmask = durations_to_frame2phone(torch.from_numpy(durs).to(dev),
+                                           torch.from_numpy(n_valid).to(dev), F)
+    twin_equal = (tf2p.is_cuda and np.array_equal(f2p, tf2p.cpu().numpy())
+                  and np.array_equal(mask, tmask.cpu().numpy()))
+    over = int((durs.sum(axis=1) > F).sum())
+    print(f"  durations_to_frame2phone_np against durations_to_frame2phone on the card at "
+          f"B={B} N={N} F={F} (valid phones {n_valid.min()}-{n_valid.max()}, {over} rows "
+          f"longer than F): equal {twin_equal}", flush=True)
+    check(twin_equal, "quality: the numpy twin differs from the torch function on the card")
+    phase_s = time.perf_counter() - t_phase
+    check(phase_s <= QUALITY_BUDGET_S, f"quality: {phase_s:.1f} s, over {QUALITY_BUDGET_S} s")
+    return dict(counts=counts, per_pair=per_pair, words_per_s=words_per_s, mcd_err=mcd_err,
+                paths_differ=paths_differ, mean_mcd=card_sum["mean_mcd_dtw_db"],
+                synth_ms=synth_ms)
 
 
 def write_vec(path: Path, words, dim: int, seed: int) -> str:
@@ -2201,6 +2435,7 @@ def main() -> int:
     import numpy as np
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA "
               "card", file=sys.stderr)
@@ -3085,6 +3320,15 @@ def main() -> int:
     say("import_export", t0, s_per_audio_s=f"{ie_run['per_audio_s']['total_s']:.5f}",
         export_s=f"{ie_run['export_s']:.2f}", request_ms=f"{ie_run['request_ms']:.1f}")
 
+    # -- quality --------------------------------------------------------------------------
+    t0 = time.perf_counter()
+    q_run = quality_phase(work, ie_run.pop("cube"))
+    say("quality", t0, mean_mcd_dtw_db=q_run["mean_mcd"], mcd_card_vs_cpu=
+        f"{q_run['mcd_err']:.4f}", paths_differ=q_run["paths_differ"],
+        pair_ms=f"{q_run['per_pair']['pair']:.1f}",
+        text2feat_words_per_s=f"{q_run['words_per_s']:.0f}",
+        launches_b1=q_run["counts"]["fused_tail_stage"])
+
     # -- lm -------------------------------------------------------------------------------
     t0 = time.perf_counter()
     lm_run = lm_phase(work, ph_run["pbase"])
@@ -3348,15 +3592,17 @@ def main() -> int:
     # launches on the main paths (warmup, serve, serve_wide, serve_batch whole and
     # chunked, train, train_bf16, trainer in fp32 and in bf16, the mesh's trainer and
     # synthesis, the phonemizer family's training and decoding, the exported voice's
-    # request, the LM-conditioned trainers, step and voices, the story and the profiling
-    # hooks), each counted from zero just before its path ran
+    # request and the quality phase's requests, the LM-conditioned trainers, step and
+    # voices, the story and the profiling hooks), each counted from zero just before its
+    # path ran
     paths = (warm_counts, serve_counts, wide_counts, batch_runs["whole"]["counts"],
              batch_runs["chunked"]["counts"], train_counts, bf16_counts, trainer_counts,
              trainer16_counts, mesh_run["counts"], ph_run["counts"], ie_run["counts"],
-             lm_run["counts"], legacy_run["counts"], inv_run["counts"])
+             q_run["counts"], lm_run["counts"], legacy_run["counts"], inv_run["counts"])
     main_counts = {n: sum(c[n] for c in paths) for n in serve_counts}
     print(f"  main-path launches: {main_counts}; launches in the kernel phases: "
           f"{phase_launches}", flush=True)
+    print(f"  script seconds={time.perf_counter() - t_script:.1f}", flush=True)
     print(card_line(), flush=True)  # again here, where the end of the output keeps it
     print(json.dumps({"kernels": [*[{
         "name": f"fused_tail_stage[{mode} {shape}]", "route": "cuda",

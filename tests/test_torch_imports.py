@@ -101,6 +101,9 @@ LEGACY_MODULES = ("ops.rnn", "ops.linear", "dsp.mulaw", "models.heads", "models.
 # the rest of the inventory: StoryCube (it imports api, the repository, dsp and ops) and
 # profiling
 INVENTORY_MODULES = ("story", "utils.profiling")
+# the word-level front end, the host twin of length regulation and the quality metric
+FRONT_END_MODULES = ("data.text", "ops.length_regulator", "scripts.eval_drive_quality",
+                     "scripts.patch")
 
 
 def test_the_phonemizer_family_is_checked():
@@ -125,12 +128,17 @@ def test_the_rest_of_the_inventory_is_checked():
             "ttscube_tpu_torch/ops/__init__.py"} <= names
 
 
+def test_the_front_end_and_the_quality_metric_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"ttscube_tpu_torch/{m.replace('.', '/')}.py" for m in FRONT_END_MODULES} <= names
+
+
 @pytest.mark.parametrize("module", PHONEMIZER_MODULES + LM_MODULES + LEGACY_MODULES
-                         + INVENTORY_MODULES)
+                         + INVENTORY_MODULES + FRONT_END_MODULES)
 def test_imports_with_the_missing_packages_blocked(module):
     """Each module of the phonemizer family, of LM conditioning, of the legacy
-    generation (Textcoder, the WaveRNN vocoder, their data and trainers) and of the rest
-    of the inventory imports in a fresh interpreter where jax, flax, optax, yaml,
+    generation (Textcoder, the WaveRNN vocoder, their data and trainers), of the rest
+    of the inventory and of the front end and quality metric imports in a fresh interpreter where jax, flax, optax, yaml,
     msgpack, transformers, tokenizers, safetensors, requests, PIL and ttscube_tpu cannot
     be imported (None in sys.modules makes an import raise)."""
     blocked = ["jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "transformers",

@@ -1,10 +1,12 @@
-"""Text front end, counterpart of `ttscube_tpu/data/text.py` (`SimpleTokenizer`,
-`Text2FeatBlizzard`): tokenize, run the aligned phonemizer over the raw characters,
-strip '_' deletions and rebuild phon2word."""
+"""Text front end, counterpart of `ttscube_tpu/data/text.py`: `SimpleTokenizer`;
+`Text2FeatBlizzard`, which runs the aligned phonemizer over the raw characters, strips
+'_' deletions and rebuilds phon2word; and `Text2Feat`, the word-level front end, which
+transcribes words through a G2P hook with a `Lexicon` that overrides it."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 import torch
@@ -85,4 +87,66 @@ class Text2FeatBlizzard:
                 c_pos = 0
                 w_index += 1
         return {"orig_text": text, "words": words, "phones": curated,
+                "phon2word": phon2word}
+
+
+class Lexicon:
+    """Word → phones lookup with JSON persistence; words are looked up lower-cased."""
+
+    def __init__(self, filename: str | None = None):
+        self.word2phones: dict[str, list[str]] = {}
+        if filename is not None:
+            self.load(filename)
+
+    def load(self, filename: str):
+        with open(filename) as f:
+            self.word2phones = json.load(f)
+
+    def save(self, filename: str):
+        with open(filename, "w") as f:
+            json.dump(self.word2phones, f)
+
+    def __contains__(self, word):
+        return word.lower() in self.word2phones
+
+    def __getitem__(self, word):
+        return self.word2phones[word.lower()]
+
+
+class Text2Feat:
+    """Word-level front end: text → {orig_text, words, phones, phon2word}.
+
+    `g2p_transcribe(words: list[str]) -> list[list[str]]` is the model hook (the port's
+    `G2P.transcribe` fits it); it gets the words the lexicon lacks, in order and with
+    duplicates, and is not called when there are none. The lexicon wins where it knows
+    the word."""
+
+    def __init__(self, g2p_transcribe, lexicon: Lexicon | None = None):
+        self.g2p_transcribe = g2p_transcribe
+        self.lexicon = lexicon or Lexicon()
+        self.tokenizer = SimpleTokenizer()
+
+    def __call__(self, text: str) -> dict:
+        text = text.replace("\n\n", " ").replace("\n", " ")
+        if not text.startswith(" "):
+            text = " " + text
+        if not text.endswith(" "):
+            text = text + " "
+        tokens = self.tokenizer(text)
+        need_g2p = [t.word for t in tokens if t.is_word and t.word not in self.lexicon]
+        transcriptions = dict(zip(need_g2p, self.g2p_transcribe(need_g2p))) if need_g2p else {}
+
+        words, phones, phon2word = [], [], []
+        for i, t in enumerate(tokens):
+            words.append(t.word)
+            if t.is_word:
+                trans = (self.lexicon[t.word] if t.word in self.lexicon
+                         else transcriptions.get(t.word, []))
+            else:
+                trans = [t.word] if t.word == " " else []
+            for ph in trans:
+                if ph != "_":
+                    phones.append(ph)
+                    phon2word.append(i)
+        return {"orig_text": text, "words": words, "phones": phones,
                 "phon2word": phon2word}

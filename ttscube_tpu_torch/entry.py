@@ -23,17 +23,14 @@ import numpy as np
 import torch
 
 from ttscube_tpu_torch import resolve_device
+from ttscube_tpu_torch.ops.length_regulator import durations_to_frame2phone_np
 
 
 def _example_batch(B=2, N=16, F=60) -> dict:
     """`__graft_entry__._example_batch`, as numpy arrays (the same seeded values)."""
     rng = np.random.default_rng(0)
     durs = rng.integers(2, 6, (B, N)).astype(np.int32)
-    ends = np.cumsum(durs, axis=1)  # durations_to_frame2phone_np, all N phones valid
-    frames = np.arange(F)
-    f2p = np.minimum(np.sum(frames[None, :, None] >= ends[:, None, :], axis=-1),
-                     N - 1).astype(np.int32)
-    fmask = frames[None, :] < ends[:, -1:]
+    f2p, fmask = durations_to_frame2phone_np(durs, np.full((B,), N, np.int32), F)
     return {
         "x_char": rng.integers(1, 30, (B, N)).astype(np.int32),
         "x_speaker": rng.integers(1, 3, (B, 1)).astype(np.int32),
