@@ -474,25 +474,27 @@ def rel_rms(a, b) -> float:
     return float(d.norm() / b.double().norm().clamp(min=1e-300))
 
 
-def counters() -> dict:
-    """Every kernel wrapper, by kernel name; each counts its launches in `.launches`."""
-    from ttscube_tpu_torch.ops import fused_mrf, fused_resblock, fused_tail, narrow_conv
+KERNEL_WRAPPERS = ("fused_tail_stage", "fused_tail_stage_grad", "fused_mrf1",
+                   "fused_tail_stage_mid", "fused_resblock1", "narrow_conv_blocked")
+_counted_from: dict = {}
 
-    return {"fused_tail_stage": fused_tail.fused_tail_stage,
-            "fused_tail_stage_grad": fused_tail.fused_tail_stage_grad,
-            "fused_mrf1": fused_mrf.fused_mrf1,
-            "fused_tail_stage_mid": fused_tail.fused_tail_stage_mid,
-            "fused_resblock1": fused_resblock.fused_resblock1,
-            "narrow_conv_blocked": narrow_conv.narrow_conv_blocked}
+
+def launches(name: str) -> int:
+    """The launches of kernel wrapper `name` in this process (`launches.<name>` in the
+    port's counters, `utils/profiling`)."""
+    from ttscube_tpu_torch.utils.profiling import counters
+
+    return counters().get(f"launches.{name}", 0)
 
 
 def zero_counts() -> None:
-    for f in counters().values():
-        f.launches = 0
+    """Count every wrapper's launches from here on (`read_counts`)."""
+    _counted_from.update({n: launches(n) for n in KERNEL_WRAPPERS})
 
 
 def read_counts() -> dict:
-    return {name: f.launches for name, f in counters().items()}
+    """Each wrapper's launches since the last `zero_counts`."""
+    return {n: launches(n) - _counted_from.get(n, 0) for n in KERNEL_WRAPPERS}
 
 
 def moved(w, device):
@@ -2664,7 +2666,7 @@ def main() -> int:
     print("  fused_resblock1 thread blocks per launch: " + ", ".join(
         f"{k[9:]} {v}" for k, v in grids.items() if k.startswith("resblock ")), flush=True)
     say("kernel_resblock", t0, checks=2 * len(res_errs),
-        launches=fused_resblock.fused_resblock1.launches)
+        launches=launches("fused_resblock1"))
 
     # -- kernel_narrow_conv -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2714,9 +2716,9 @@ def main() -> int:
     print("  narrow_conv thread blocks per launch: " + ", ".join(
         f"{k[5:]} {v}" for k, v in grids.items() if k.startswith("conv ")), flush=True)
     say("kernel_narrow_conv", t0, checks=len(conv_errs),
-        launches=narrow_conv.narrow_conv_blocked.launches)
-    phase_launches = {"fused_resblock1": fused_resblock.fused_resblock1.launches,
-                      "narrow_conv_blocked": narrow_conv.narrow_conv_blocked.launches}
+        launches=launches("narrow_conv_blocked"))
+    phase_launches = {"fused_resblock1": launches("fused_resblock1"),
+                      "narrow_conv_blocked": launches("narrow_conv_blocked")}
 
     # -- warmup -------------------------------------------------------------------
     from ttscube_tpu_torch.api import TTSCube, config_from_yaml, phonemizer_config
@@ -2782,11 +2784,11 @@ def main() -> int:
     served = []
     for text in REQUESTS:
         total = cube.frames(text, speaker=speaker)  # the duration pass alone
-        before = fused_tail.fused_tail_stage.launches
+        before = launches("fused_tail_stage")
         t1 = time.perf_counter()
         pcm = cube(text, speaker=speaker)
         ms = (time.perf_counter() - t1) * 1e3
-        check(fused_tail.fused_tail_stage.launches - before == 1,
+        check(launches("fused_tail_stage") - before == 1,
               "fused_tail_stage did not launch once per request")
         check(pcm.dtype.name == "int16" and pcm.shape == (total * HOP,),
               f"served audio {pcm.dtype} {pcm.shape}, want int16 ({total * HOP},)")
@@ -2961,15 +2963,15 @@ def main() -> int:
     zero_counts()
     step_ms = []
     for step in range(TRAIN_STEPS):
-        b1, b2 = fused_tail.fused_tail_stage.launches, fused_tail.fused_tail_stage_grad.launches
+        b1, b2 = launches("fused_tail_stage"), launches("fused_tail_stage_grad")
         t1 = time.perf_counter()
         _, met = tcg.train_step(state, tb)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         met = {k: v.item() for k, v in met.items()}
         check(all(math.isfinite(v) for v in met.values()), f"train step {step}: {met}")
-        check((fused_tail.fused_tail_stage.launches - b1,
-               fused_tail.fused_tail_stage_grad.launches - b2) == (1, 1),
+        check((launches("fused_tail_stage") - b1,
+               launches("fused_tail_stage_grad") - b2) == (1, 1),
               "train step: B1 and B2 did not launch once each")
         print(f"  train step {step} B={TRAIN_BATCH} ms={step_ms[-1]:.1f} "
               + " ".join(f"{k}={v:.4f}" for k, v in sorted(met.items())), flush=True)

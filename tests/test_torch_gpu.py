@@ -13,10 +13,16 @@ import pytest
 import torch
 
 from ttscube_tpu_torch.ops import fused_tail
+from ttscube_tpu_torch.utils.profiling import counters as _counters
 
 KS = (3, 7, 11)
 DILS = ((1, 3, 5),) * 3
 GRAD_REL_RMS = 5e-3  # chip_smoke.py's limit on B2's grads at the training shape
+
+
+def launches(wrapper) -> int:
+    """The launches of a kernel wrapper so far (`launches.<name>`, utils/profiling)."""
+    return _counters().get(f"launches.{wrapper.__name__}", 0)
 
 
 def _case(B, T_in, seed, device, ks=KS, dils=DILS, c_in=64):
@@ -64,11 +70,11 @@ def test_fused_tail_kernel_matches_plain(cuda, B, T_in, bf16, ks, dils):
     pack = lambda cd: fused_tail.pack_tail_weights(*args[1:], kernel_sizes=ks, dilations=dils,
                                                    compute_dtype=cd)
     w32 = pack(None)
-    before = fused_tail.fused_tail_stage.launches
+    before = launches(fused_tail.fused_tail_stage)
     got32 = fused_tail.fused_tail_stage(args[0], w32)
     want32 = fused_tail.fused_tail_stage_plain(args[0], w32)
     torch.cuda.synchronize()
-    assert fused_tail.fused_tail_stage.launches == before + 1
+    assert launches(fused_tail.fused_tail_stage) == before + 1
     assert got32.shape == want32.shape == (B, 4 * T_in)
     assert (got32 - want32).abs().max().item() <= 5e-5
     if bf16:
@@ -140,11 +146,11 @@ def test_serving_generator_matches_module_path_on_the_card(cuda):
     gen = init_random(Generator(HifiganConfig()), 0).to(cuda)
     mel = torch.from_numpy(
         np.random.default_rng(2).standard_normal((1, 6, 80)).astype(np.float32)).to(cuda)
-    before = fused_tail.fused_tail_stage.launches
+    before = launches(fused_tail.fused_tail_stage)
     with torch.no_grad():
         got = generator_apply_fused(gen, mel, gen.config)
         want = gen(mel)
-    assert fused_tail.fused_tail_stage.launches == before + 1
+    assert launches(fused_tail.fused_tail_stage) == before + 1
     assert got.shape == want.shape == (1, 6 * 240)
     assert (got - want).abs().max().item() <= 5e-5
 
@@ -212,11 +218,11 @@ def test_fused_tail_grad_kernel_matches_plain_vjp(cuda, monkeypatch, B, T_in, ks
     dy = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (B, 4 * T_in)).astype(np.float32)).to(cuda)
     want = _plain_vjp(leaves, dy, ks, dils)
-    before = (fused_tail.fused_tail_stage.launches, fused_tail.fused_tail_stage_grad.launches)
+    before = (launches(fused_tail.fused_tail_stage), launches(fused_tail.fused_tail_stage_grad))
     got = _kernel_vjp(leaves, dy, ks, dils)
     again = _kernel_vjp(leaves, dy, ks, dils)
     torch.cuda.synchronize()
-    assert (fused_tail.fused_tail_stage.launches, fused_tail.fused_tail_stage_grad.launches) \
+    assert (launches(fused_tail.fused_tail_stage), launches(fused_tail.fused_tail_stage_grad)) \
         == (before[0] + 2, before[1] + 2)
     for i, (g, w_) in enumerate(zip(got, want)):
         assert g.shape == w_.shape, i
@@ -337,12 +343,12 @@ def test_fused_mrf_kernel_matches_plain(cuda, B, T, C, chains):
     pack = lambda cd: fused_mrf.pack_mrf_weights(kernels, biases, kernel_sizes=chains["ks"],
                                                  dilations=chains["dils"], compute_dtype=cd)
     w32, w16 = pack(None), pack(torch.bfloat16)
-    before = fused_mrf.fused_mrf1.launches
+    before = launches(fused_mrf.fused_mrf1)
     got32, again = fused_mrf.fused_mrf1(x, w32), fused_mrf.fused_mrf1(x, w32)
     got16 = fused_mrf.fused_mrf1(x, w16)
     want32, want16 = fused_mrf.fused_mrf_plain(x, w32), fused_mrf.fused_mrf_plain(x, w16)
     torch.cuda.synchronize()
-    assert fused_mrf.fused_mrf1.launches == before + 3
+    assert launches(fused_mrf.fused_mrf1) == before + 3
     assert got32.shape == want32.shape == (B, T, C)
     assert torch.equal(got32, again)
     assert (got32 - want32).abs().max().item() <= _fp32_limit(want32)
@@ -386,14 +392,14 @@ def test_fused_mid_stage_kernel_matches_plain(cuda, B, T_in, chains):
         up, up_b, mrf_kernels, mrf_biases, kernel_sizes=chains["ks"],
         dilations=chains["dils"], compute_dtype=cd)
     w32, w16 = pack(None), pack(torch.bfloat16)
-    before = fused_tail.fused_tail_stage_mid.launches
+    before = launches(fused_tail.fused_tail_stage_mid)
     got32 = fused_tail.fused_tail_stage_mid(x, w32)
     again = fused_tail.fused_tail_stage_mid(x, w32)
     got16 = fused_tail.fused_tail_stage_mid(x, w16)
     want32 = fused_tail.fused_tail_stage_plain(x, w32)
     want16 = fused_tail.fused_tail_stage_plain(x, w16)
     torch.cuda.synchronize()
-    assert fused_tail.fused_tail_stage_mid.launches == before + 3
+    assert launches(fused_tail.fused_tail_stage_mid) == before + 3
     assert got32.shape == want32.shape == (B, 4 * T_in, 64)
     assert torch.equal(got32, again)
     assert (got32 - want32).abs().max().item() <= _fp32_limit(want32)
@@ -437,11 +443,11 @@ def test_wide_serving_generator_matches_module_path_on_the_card(cuda):
         np.random.default_rng(2).standard_normal((1, 37, 80)).astype(np.float32)).to(cuda)
     counters = (fused_mrf.fused_mrf1, fused_tail.fused_tail_stage_mid,
                 fused_tail.fused_tail_stage)
-    before = [c.launches for c in counters]
+    before = [launches(c) for c in counters]
     with torch.no_grad():
         got = generator_apply_fused(gen, mel, gen.config, fuse_channels=(256, 128, 64, 32))
         want = gen(mel)
-    assert [c.launches - b for c, b in zip(counters, before)] == [2, 1, 1]
+    assert [launches(c) - b for c, b in zip(counters, before)] == [2, 1, 1]
     assert got.shape == want.shape == (1, 37 * 240)
     assert (got - want).abs().max().item() <= 5e-5
 
@@ -471,13 +477,13 @@ def test_fused_resblock_kernel_matches_plain(cuda, B, T, C, k, dils):
     biases = [n(0.1, C) for _ in kernels]
     run = lambda f, cd=None: f(x, kernels, biases, kernel_size=k, dilations=dils,
                                compute_dtype=cd)
-    before = fused_resblock.fused_resblock1.launches
+    before = launches(fused_resblock.fused_resblock1)
     got32, again = run(fused_resblock.fused_resblock1), run(fused_resblock.fused_resblock1)
     got16 = run(fused_resblock.fused_resblock1, torch.bfloat16)
     want32 = run(fused_resblock.fused_resblock1_plain)
     want16 = run(fused_resblock.fused_resblock1_plain, torch.bfloat16)
     torch.cuda.synchronize()
-    assert fused_resblock.fused_resblock1.launches == before + 3
+    assert launches(fused_resblock.fused_resblock1) == before + 3
     assert got32.shape == want32.shape == (B, T, C) and got32.dtype == torch.float32
     assert torch.equal(got32, again)
     assert (got32 - want32).abs().max().item() <= 2e-5 * max(1.0, want32.abs().max().item())
@@ -504,14 +510,14 @@ def test_narrow_conv_kernel_matches_plain(cuda, B, T, C, k):
     x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(cuda)
     w = torch.from_numpy((rng.standard_normal((k, C, C)) / np.sqrt(k * C))
                          .astype(np.float32)).to(cuda)
-    before = narrow_conv.narrow_conv_blocked.launches
+    before = launches(narrow_conv.narrow_conv_blocked)
     got, again = narrow_conv.narrow_conv_blocked(x, w), narrow_conv.narrow_conv_blocked(x, w)
     got16, again16 = (narrow_conv.narrow_conv_blocked(x.bfloat16(), w.bfloat16())
                       for _ in range(2))
     want, want16 = (narrow_conv.narrow_conv_plain(x, w),
                     narrow_conv.narrow_conv_plain(x.bfloat16(), w.bfloat16()))
     torch.cuda.synchronize()
-    assert narrow_conv.narrow_conv_blocked.launches == before + 4
+    assert launches(narrow_conv.narrow_conv_blocked) == before + 4
     assert got.shape == (B, T, C) and got16.dtype == torch.float32
     assert torch.equal(got, again) and torch.equal(got16, again16)
     for a, b in ((got, want), (got16, want16)):
@@ -620,12 +626,12 @@ def test_fused_tail_kernel_at_the_batched_serving_shapes(cuda, B, frames):
     pack = lambda cd: fused_tail.pack_tail_weights(*args[1:], kernel_sizes=KS, dilations=DILS,
                                                    compute_dtype=cd)
     w32, w16 = pack(None), pack(torch.bfloat16)
-    before = fused_tail.fused_tail_stage.launches
+    before = launches(fused_tail.fused_tail_stage)
     got32, got16 = fused_tail.fused_tail_stage(args[0], w32), fused_tail.fused_tail_stage(args[0], w16)
     want32 = fused_tail.fused_tail_stage_plain(args[0], w32)
     want16 = fused_tail.fused_tail_stage_plain(args[0], w16)
     torch.cuda.synchronize()
-    assert fused_tail.fused_tail_stage.launches == before + 2
+    assert launches(fused_tail.fused_tail_stage) == before + 2
     assert got32.shape == got16.shape == want32.shape == (B, 4 * args[0].shape[1])
     assert bool(torch.isfinite(got16).all())
     assert (got32 - want32).abs().max().item() <= 5e-5
@@ -673,9 +679,9 @@ def test_chunked_serving_matches_whole_on_the_card(cuda, monkeypatch, fuse_chann
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     counters = (fused_tail.fused_tail_stage, fused_mrf.fused_mrf1, fused_tail.fused_tail_stage_mid)
     whole32, whole16 = (m.infer(X, max_frames=512)[0] for m in (m32, m16))
-    before = [c.launches for c in counters]
+    before = [launches(c) for c in counters]
     chunk16 = m16.infer(X, max_frames=512, chunk_frames=256)[0]
-    rise = [c.launches - b for c, b in zip(counters, before)]
+    rise = [launches(c) - b for c, b in zip(counters, before)]
     chunk32, again16 = m32.infer(X, max_frames=512, chunk_frames=256)[0], \
         m16.infer(X, max_frames=512, chunk_frames=256)[0]
     torch.cuda.synchronize()
@@ -777,14 +783,14 @@ def test_mesh_step_on_one_card(cuda):
                                                                    device=device), step)
         state = tcg.create_train_state(model)
         out, first = [], None
-        grads = fused_tail.fused_tail_stage_grad.launches
+        grads = launches(fused_tail.fused_tail_stage_grad)
         for _ in range(2):
             state, m = step(state, batch)
             out.append({k: float(v) for k, v in m.items()})
             if first is None:
                 first = {n: (p.full_tensor() if hasattr(p, "full_tensor") else p)
                          .detach().cpu() for n, p in model.named_parameters()}
-        return out, first, fused_tail.fused_tail_stage_grad.launches - grads
+        return out, first, launches(fused_tail.fused_tail_stage_grad) - grads
 
     flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32, torch.are_deterministic_algorithms_enabled())

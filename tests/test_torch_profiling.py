@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from ttscube_tpu.models.hifigan_fused import generator_apply_fused as jax_apply_fused
 from ttscube_tpu_torch.models.hifigan_fused import generator_apply_fused
-from ttscube_tpu_torch.utils.profiling import PhaseTimer, device_timer, trace
+from ttscube_tpu_torch.utils.profiling import device_timer, trace
 from tests.torch_parity import TINY_HIFI, assert_close, gen_pair, one_cpu_thread, t  # noqa: F401
 
 # PyTorch on one thread: the tier's workers share the machine's cores
@@ -22,19 +22,6 @@ pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 # four stages, the last 32 wide with kernel == stride == 4: the port fuses it (B1)
 HIFI = dict(TINY_HIFI, upsample_initial_channel=512)
 FRAMES = 6
-
-
-def test_phase_timer_reports_its_phases():
-    pt = PhaseTimer()
-    x = torch.ones(64, 64)
-    for _ in range(2):
-        with pt.phase("mul", block_on=x):
-            y = x * 2
-    with pt.phase("sum", block_on=[y, {"y": y}]):
-        y.sum()
-    report = pt.report()
-    assert "mul" in report and "(2 calls)" in report and "sum" in report
-    assert pt.counts == {"mul": 2, "sum": 1} and all(v >= 0 for v in pt.totals.values())
 
 
 def test_device_timer_on_cpu_tensors():

@@ -9,6 +9,10 @@ Steps, as in the JAX class: text → aligned phonemizer → collate → duration
 total frame count comes back to the host) → frame bucket (multiples of FRAME_BUCKET,
 at most MAX_FRAMES) → Cubegan.infer at that bucket → trim to total·hop → int16.
 
+Each request is a tree of program spans (`utils/profiling.span`), `tts.api.request#<n>`
+at its top, and counts `api.requests`; `shapes.new.text` and `shapes.new.gen` rise when
+a request meets an input shape that no earlier call, warmup's among them, met.
+
 `TTSCube.warmup()` runs the whole path of a request, the audio's copy to the host and
 its int16 conversion included, once for each pair of text length and frame bucket it is
 given, so that a server's first requests do not pay for what a first call sets up on
@@ -49,6 +53,7 @@ from ttscube_tpu_torch.models.languasito import LanguasitoConfig
 from ttscube_tpu_torch.models.lm import LMConfig
 from ttscube_tpu_torch.models.phonemizer import Phonemizer, PhonemizerConfig
 from ttscube_tpu_torch.utils import config_io, repository
+from ttscube_tpu_torch.utils.profiling import count, span
 
 FRAME_BUCKET = 256
 MAX_FRAMES = 8192
@@ -173,20 +178,23 @@ class TTSCube:
         """text → phonemize → collate → the model's input tensors on the device (every
         `x_` array of the collate: with LM conditioning `x_words`, or the token window
         `x_tok_ids`, `x_tok_mask`, `x_word2tok`)."""
-        meta = self.text2feat(text)
+        with span("tts.api.phonemize"):
+            meta = self.text2feat(text)
         meta["speaker"] = speaker
         meta["frame2phon"] = [0]  # placeholder; free synthesis predicts durations
-        if self.hf_frontend is not None:
-            meta = self.hf_frontend(meta)
-        example = {"meta": meta, "mgc": np.zeros((8, 80), np.float32),
-                   "pitch": np.zeros((8,), np.float32)}
-        X = self.collate([example])
-        return batch_to_torch({k: v for k, v in X.items() if k.startswith("x_")},
-                              self.device)
+        with span("tts.api.collate"):
+            if self.hf_frontend is not None:
+                meta = self.hf_frontend(meta)
+            example = {"meta": meta, "mgc": np.zeros((8, 80), np.float32),
+                       "pitch": np.zeros((8,), np.float32)}
+            X = self.collate([example])
+            return batch_to_torch({k: v for k, v in X.items() if k.startswith("x_")},
+                                  self.device)
 
     @torch.inference_mode()
     def _frames(self, X) -> int:
-        total = int(self.model.durations(X).sum().item())
+        with span("tts.api.durations"):
+            total = int(self.model.durations(X).sum().item())
         return max(total, 1)  # all-unknown phones predict 0 frames: one frame of silence
 
     def frames(self, text: str, speaker: str = "none") -> int:
@@ -195,17 +203,21 @@ class TTSCube:
 
     @torch.inference_mode()
     def synthesize(self, text: str, speaker: str = "none"):
-        """(audio fp32 of length total·hop, total predicted frames)."""
-        X = self._prepare(text, speaker)
-        total = self._frames(X)
-        bucket = int(np.clip(((total + FRAME_BUCKET - 1) // FRAME_BUCKET) * FRAME_BUCKET,
-                             FRAME_BUCKET, MAX_FRAMES))
-        audio, _ = self.model.infer(X, max_frames=bucket)
-        return self._to_host(audio, total), total
+        """(audio fp32 of length total·hop, total predicted frames). The request is the
+        span `tts.api.request#<n>` (n counts `api.requests`) around `tts.api.phonemize`,
+        `tts.api.collate`, `tts.api.durations`, `tts.infer#…` and `tts.api.to_host`."""
+        with span("tts.api.request", count("api.requests")):
+            X = self._prepare(text, speaker)
+            total = self._frames(X)
+            bucket = int(np.clip(((total + FRAME_BUCKET - 1) // FRAME_BUCKET) * FRAME_BUCKET,
+                                 FRAME_BUCKET, MAX_FRAMES))
+            audio, _ = self.model.infer(X, max_frames=bucket)
+            return self._to_host(audio, total), total
 
     def _to_host(self, audio, total: int) -> np.ndarray:
         """The first item's audio of `total` frames, fp32 on the host."""
-        return audio[0, : total * self.config.hop_size].float().cpu().numpy()
+        with span("tts.api.to_host"):
+            return audio[0, : total * self.config.hop_size].float().cpu().numpy()
 
     @staticmethod
     def _int16(audio: np.ndarray) -> np.ndarray:

@@ -51,6 +51,7 @@ from ttscube_tpu_torch.models.hifigan import (_DTYPES, Generator, HifiganConfig,
 from ttscube_tpu_torch.models.languasito import (Languasito2, LanguasitoConfig,
                                                  languasito_losses)
 from ttscube_tpu_torch.models.lm import LMConfig, TransformerEncoder
+from ttscube_tpu_torch.utils.profiling import count, new_shape, span
 
 TRAIN_FRAMES = 50   # 12,000-sample GAN window
 VAL_FRAMES = 200    # 48,000-sample validation window
@@ -142,10 +143,12 @@ class Cubegan(nn.Module):
         itself without an encoder or a token window."""
         if not hasattr(self, "hf") or "x_tok_ids" not in X:
             return X
-        hidden = self.hf(X["x_tok_ids"], X.get("x_tok_mask"))
-        hidden = torch.cat([hidden.new_zeros(hidden.shape[0], 1, hidden.shape[2]), hidden], 1)
-        idx = X["x_word2tok"].long()[:, :, None].expand(-1, -1, hidden.shape[2])
-        return dict(X, x_words=torch.gather(hidden, 1, idx))
+        with span("tts.lm"):
+            hidden = self.hf(X["x_tok_ids"], X.get("x_tok_mask"))
+            hidden = torch.cat([hidden.new_zeros(hidden.shape[0], 1, hidden.shape[2]),
+                                hidden], 1)
+            idx = X["x_word2tok"].long()[:, :, None].expand(-1, -1, hidden.shape[2])
+            return dict(X, x_words=torch.gather(hidden, 1, idx))
 
     def forward(self, X):
         """Teacher-forced synthesis: the generator on the conditioning the text model
@@ -164,14 +167,28 @@ class Cubegan(nn.Module):
         """Free synthesis: (audio (B, max_frames·hop) fp32, aux dict). With
         `chunk_frames` the generator runs in windows of that many frames plus a halo
         on each side, one after another (`generate_chunked`), which bounds its memory
-        for long utterances and large batches; None runs the whole utterance at once."""
-        with self._no_autograd():
+        for long utterances and large batches; None runs the whole utterance at once.
+        The batch is the span `tts.infer#<n>` (n counts `infer.batches`) around `tts.lm`,
+        `tts.text` and `tts.gen`; new input shapes count `shapes.new.text` and
+        `shapes.new.gen`."""
+        B = X["x_char"].shape[0]
+        n = count("infer.batches")
+        count("infer.frames", B * max_frames)
+        new_shape("text", (B, X["x_char"].shape[1], max_frames))
+        h = self.config.hifigan
+        gen = self.gen.fused if h.fused_tail else self.gen
+
+        def generate(c):
+            new_shape("gen", c.shape[:2])
+            return gen(c)
+
+        with self._no_autograd(), span("tts.infer", n):
             cond, aux = self.lang.infer(self.lm_condition(X), max_frames)
-            h = self.config.hifigan
-            gen = self.gen.fused if h.fused_tail else self.gen
-            if chunk_frames is not None:
-                return generate_chunked(gen, cond, h.total_upsample, chunk=chunk_frames), aux
-            return gen(cond), aux
+            with span("tts.gen"):
+                if chunk_frames is not None:
+                    return generate_chunked(generate, cond, h.total_upsample,
+                                            chunk=chunk_frames), aux
+                return generate(cond), aux
 
     # -- the training step's pieces -----------------------------------------------------
 
@@ -204,10 +221,8 @@ class Cubegan(nn.Module):
             starts = self.crop_starts(batch["n_frames"], window, generator)
         cond_w, y_w = self._crop(cond, batch["y_audio"], starts, window)
         check_fused_tail_train(h)
-        if h.fused_tail_train:
-            y_hat = self.gen.fused_train(cond_w)
-        else:
-            y_hat = self.gen(cond_w)
+        with span("tts.gen"):
+            y_hat = self.gen.fused_train(cond_w) if h.fused_tail_train else self.gen(cond_w)
         return (dur_logits, pitch, vuv, y_hat), y_w
 
     def d_loss(self, y_w, y_hat_sg, update_spectral: bool):
@@ -342,21 +357,35 @@ def train_step(state: TrainState, batch: dict, starts=None):
     """One GAN step with D-then-G sequencing (see the module docstring). `batch` holds
     tensors on the model's device (`batch_to_torch`); `starts` overrides the crop
     offsets drawn from `crop_generator(state.seed, state.step)`. Returns (state,
-    metrics), metrics as detached scalar tensors."""
+    metrics), metrics as detached scalar tensors. The step is the span
+    `tts.train.step#<step>` around one span per phase: `tts.train.forward`, `d_loss`,
+    `d_backward`, `d_opt`, `gt_loss`, `gt_backward`, `gt_opt`; it counts `train.steps`,
+    and a new (B, phones, frames, tokens) counts `shapes.new.train.step`."""
     model = state.model
-    model.zero_grad(set_to_none=True)
-    outs, y_w = model.gan_forward(batch, TRAIN_FRAMES, starts,
-                                  crop_generator(state.seed, state.step))
+    count("train.steps")
+    new_shape("train.step", (*batch["x_char"].shape, batch["y_frame2phone"].shape[1],
+                             batch["x_tok_ids"].shape[1] if "x_tok_ids" in batch else 0))
+    with span("tts.train.step", state.step):
+        model.zero_grad(set_to_none=True)
+        with span("tts.train.forward"):
+            outs, y_w = model.gan_forward(batch, TRAIN_FRAMES, starts,
+                                          crop_generator(state.seed, state.step))
 
-    # phase 1: the discriminators' step on the detached ŷ (writes the spectral u)
-    loss_d = model.d_loss(y_w, outs[3].detach(), update_spectral=True)
-    loss_d.backward()
-    _step(state, "d")
+        # phase 1: the discriminators' step on the detached ŷ (writes the spectral u)
+        with span("tts.train.d_loss"):
+            loss_d = model.d_loss(y_w, outs[3].detach(), update_spectral=True)
+        with span("tts.train.d_backward"):
+            loss_d.backward()
+        with span("tts.train.d_opt"):
+            _step(state, "d")
 
-    # phase 2: generator and text losses against the updated discriminators
-    loss_gt, metrics = model.gt_losses(batch, outs, y_w)
-    loss_gt.backward()
-    _step(state, "gtb")
+        # phase 2: generator and text losses against the updated discriminators
+        with span("tts.train.gt_loss"):
+            loss_gt, metrics = model.gt_losses(batch, outs, y_w)
+        with span("tts.train.gt_backward"):
+            loss_gt.backward()
+        with span("tts.train.gt_opt"):
+            _step(state, "gtb")
 
     state.step += 1
     return state, {k: v.detach() for k, v in dict(metrics, loss_d=loss_d).items()}

@@ -22,6 +22,7 @@ from torch.distributed.fsdp import FSDPModule
 from ttscube_tpu_torch.ops.conv import SNConv1d, WNConv1d, WNConv2d, WNConvTranspose1d
 from ttscube_tpu_torch.ops.fused_mrf import MrfWeights, pack_mrf_weights
 from ttscube_tpu_torch.ops.fused_tail import TailWeights, pack_tail_weights
+from ttscube_tpu_torch.utils.profiling import count, span
 
 LRELU_SLOPE = 0.1
 
@@ -112,7 +113,9 @@ RESBLOCKS = {"1": ResBlock1, "2": ResBlock2}
 
 
 class Generator(nn.Module):
-    """mel (B, frames, num_mels) → waveform (B, frames · prod(upsample_rates))."""
+    """mel (B, frames, num_mels) → waveform (B, frames · prod(upsample_rates)). In
+    `forward`, conv_pre is the span `tts.gen.pre` and upsample stage i `tts.gen.stage<i>`,
+    as in `hifigan_fused`."""
 
     def __init__(self, config: HifiganConfig = HifiganConfig()):
         super().__init__()
@@ -202,18 +205,26 @@ class Generator(nn.Module):
 
     def forward(self, mel):
         c = self.config
-        x = self.conv_pre(mel)
+        with span("tts.gen.pre"):
+            x = self.conv_pre(mel)
         for i in range(len(c.upsample_rates)):
-            x = getattr(self, f"up_{i}")(F.leaky_relu(x, LRELU_SLOPE))
-            acc = None
-            for j in range(len(c.resblock_kernel_sizes)):
-                h = getattr(self, f"res_{i}_{j}")(x)
-                acc = h if acc is None else acc + h
-            x = acc / len(c.resblock_kernel_sizes)
+            with span(f"tts.gen.stage{i}"):
+                x = getattr(self, f"up_{i}")(F.leaky_relu(x, LRELU_SLOPE))
+                acc = None
+                for j in range(len(c.resblock_kernel_sizes)):
+                    h = getattr(self, f"res_{i}_{j}")(x)
+                    acc = h if acc is None else acc + h
+                x = acc / len(c.resblock_kernel_sizes)
         x = F.leaky_relu(x.float(), 0.01)  # final act/conv stay fp32
         audio = torch.tanh(self.conv_post(x))[..., 0]
         # v1 upsampling yields a few samples more than frames·240; trim once here
         return audio[:, : mel.shape[1] * c.total_upsample]
+
+
+def _window(apply_fn, cond):
+    count("gen.windows")
+    with span("tts.gen.window"):
+        return apply_fn(cond)
 
 
 def generate_chunked(apply_fn, cond, upsample: int, chunk: int = 256, halo: int = 32):
@@ -225,16 +236,17 @@ def generate_chunked(apply_fn, cond, upsample: int, chunk: int = 256, halo: int 
     that is the utterance's own, where `apply_fn`'s zero padding is the full run's.
     `halo` must cover the generator's receptive field in frames (v1: about 25). The
     windows run one after another, so peak memory is one window's. An input of at most
-    one window runs whole."""
+    one window runs whole. Each window is the span `tts.gen.window` and counts
+    `gen.windows`."""
     B, T, _ = cond.shape
     W = chunk + 2 * halo
     if T <= W:
-        return apply_fn(cond)
+        return _window(apply_fn, cond)
     out = None
     for k0 in range(0, T, chunk):
         k1 = min(k0 + chunk, T)               # the kept frames tile [0, T)
         a = min(max(k0 - halo, 0), T - W)     # the window lies in [0, T)
-        audio = apply_fn(cond[:, a:a + W])
+        audio = _window(apply_fn, cond[:, a:a + W])
         if out is None:
             out = audio.new_zeros(B, T * upsample)
         out[:, k0 * upsample:k1 * upsample] = audio[:, (k0 - a) * upsample:(k1 - a) * upsample]
@@ -323,6 +335,7 @@ class MultiPeriodDiscriminator(nn.Module):
         for p in self.periods:
             self.add_module(f"p{p}", DiscriminatorP(p, channels, compute_dtype))
 
+    @span("tts.disc.mpd")
     def forward(self, y, y_hat):
         rs, gs, fmap_rs, fmap_gs = [], [], [], []
         for p in self.periods:
@@ -345,6 +358,7 @@ class MultiScaleDiscriminator(nn.Module):
             self.add_module(f"s{i}", DiscriminatorS(use_spectral_norm=(i == 0), width=width,
                                                     compute_dtype=compute_dtype))
 
+    @span("tts.disc.msd")
     def forward(self, y, y_hat, update_stats: bool = False):
         """Scale 0 scores y with `update_stats` (the spectral u may be written) and
         then y_hat without, reading the u that the first call left: the order of the

@@ -19,7 +19,8 @@ conv_post and tanh run in fp32, as in the JAX function. Its polyphase option
 (`polyphase_channels`) is an exact layout transform and is not ported. Both functions
 take ResBlock1 generators only and raise ValueError for another resblock kind (the
 JAX functions fail with a KeyError there): a ResBlock2 generator is served through
-`Generator` with `fused_tail=False`, as in the JAX package.
+`Generator` with `fused_tail=False`, as in the JAX package. In both functions conv_pre
+is the span `tts.gen.pre` and upsample stage i the span `tts.gen.stage<i>`.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from ttscube_tpu_torch.ops.conv import conv1d, conv_transpose1d
 from ttscube_tpu_torch.ops.fused_mrf import fused_mrf1
 from ttscube_tpu_torch.ops.fused_tail import (fused_tail_stage, fused_tail_stage_mid,
                                               fused_tail_stage_train)
+from ttscube_tpu_torch.utils.profiling import span
 
 
 def _st(x, storage_dtype):
@@ -104,7 +106,8 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
     _require_resblock1(cfg, "generator_apply_fused")
     if storage_dtype is not None and compute_dtype is None:
         compute_dtype = storage_dtype
-    x = _st(_conv(mel, gen.conv_pre, compute_dtype, padding=3), storage_dtype)
+    with span("tts.gen.pre"):
+        x = _st(_conv(mel, gen.conv_pre, compute_dtype, padding=3), storage_dtype)
     if max_stages == 0:
         return x
     ch = cfg.upsample_initial_channel
@@ -112,33 +115,34 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
     n_blocks = len(cfg.resblock_kernel_sizes)
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
         ch //= 2
-        if k == u and (u * ch) % 128 == 0 and ch in fuse_channels:
-            # the whole stage (upsample + MRF [+ conv_post + tanh]) as one kernel
-            w = gen.stage_weights(i, compute_dtype)
-            if i == n_stages - 1:
-                audio = fused_tail_stage(x.float().contiguous(), w)
-                return audio[:, : mel.shape[1] * cfg.total_upsample]
-            x = _st(fused_tail_stage_mid(x.float().contiguous(), w), storage_dtype)
+        with span(f"tts.gen.stage{i}"):
+            if k == u and (u * ch) % 128 == 0 and ch in fuse_channels:
+                # the whole stage (upsample + MRF [+ conv_post + tanh]) as one kernel
+                w = gen.stage_weights(i, compute_dtype)
+                if i == n_stages - 1:
+                    audio = fused_tail_stage(x.float().contiguous(), w)
+                    return audio[:, : mel.shape[1] * cfg.total_upsample]
+                x = _st(fused_tail_stage_mid(x.float().contiguous(), w), storage_dtype)
+                if max_stages == i + 1:
+                    return x
+                continue
+            up = getattr(gen, f"up_{i}")
+            x = _upsample(x, up, u, k, compute_dtype, storage_dtype)
+            fold = 128 // ch if (ch < 128 and 128 % ch == 0) else 1
+            if ch in fuse_channels and ((fold >= 2 and ch * fold == 128
+                                         and x.shape[1] % fold == 0) or ch % 128 == 0):
+                # the whole MRF (every chain and their mean) as one kernel
+                x = _st(fused_mrf1(x.float().contiguous(),
+                                   gen.stage_weights(i, compute_dtype)), storage_dtype)
+            else:
+                acc = None
+                for j in range(n_blocks):
+                    h = _plain_resblock1(x, getattr(gen, f"res_{i}_{j}"), compute_dtype,
+                                         storage_dtype)
+                    acc = h if acc is None else acc + h
+                x = acc / n_blocks
             if max_stages == i + 1:
                 return x
-            continue
-        up = getattr(gen, f"up_{i}")
-        x = _upsample(x, up, u, k, compute_dtype, storage_dtype)
-        fold = 128 // ch if (ch < 128 and 128 % ch == 0) else 1
-        if ch in fuse_channels and ((fold >= 2 and ch * fold == 128 and x.shape[1] % fold == 0)
-                                    or ch % 128 == 0):
-            # the whole MRF (every chain and their mean) as one kernel
-            x = _st(fused_mrf1(x.float().contiguous(), gen.stage_weights(i, compute_dtype)),
-                    storage_dtype)
-        else:
-            acc = None
-            for j in range(n_blocks):
-                h = _plain_resblock1(x, getattr(gen, f"res_{i}_{j}"), compute_dtype,
-                                     storage_dtype)
-                acc = h if acc is None else acc + h
-            x = acc / n_blocks
-        if max_stages == i + 1:
-            return x
     # final act/conv/tanh stay fp32, as in Generator
     x = F.leaky_relu(x.float(), 0.01)
     audio = torch.tanh(_conv(x, gen.conv_post, None, padding=3))[..., 0]
@@ -157,27 +161,30 @@ def generator_apply_fused_train(gen: Generator, mel: torch.Tensor,
     each v and g (not `Generator.tail_weights`, which packs once, detached, for
     serving)."""
     _require_resblock1(cfg, "generator_apply_fused_train")
-    x = _conv(mel, gen.conv_pre, None, padding=3)
+    with span("tts.gen.pre"):
+        x = _conv(mel, gen.conv_pre, None, padding=3)
     ch = cfg.upsample_initial_channel
     n_stages = len(cfg.upsample_rates)
     n_blocks = len(cfg.resblock_kernel_sizes)
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
         ch //= 2
-        up = getattr(gen, f"up_{i}")
-        blocks = [getattr(gen, f"res_{i}_{j}") for j in range(n_blocks)]
-        if i == n_stages - 1 and k == u == 4 and ch == 32:
-            convs = [cv for block in blocks for cv in block.convs()]
-            audio = fused_tail_stage_train(
-                x.contiguous(), up.weight(), up.bias, [cv.weight() for cv in convs],
-                [cv.bias for cv in convs], gen.conv_post.weight(), gen.conv_post.bias,
-                kernel_sizes=cfg.resblock_kernel_sizes, dilations=cfg.resblock_dilation_sizes)
-            return audio[:, : mel.shape[1] * cfg.total_upsample]
-        x = _upsample(x, up, u, k)
-        acc = None
-        for block in blocks:
-            h = _plain_resblock1(x, block)
-            acc = h if acc is None else acc + h
-        x = acc / n_blocks
+        with span(f"tts.gen.stage{i}"):
+            up = getattr(gen, f"up_{i}")
+            blocks = [getattr(gen, f"res_{i}_{j}") for j in range(n_blocks)]
+            if i == n_stages - 1 and k == u == 4 and ch == 32:
+                convs = [cv for block in blocks for cv in block.convs()]
+                audio = fused_tail_stage_train(
+                    x.contiguous(), up.weight(), up.bias, [cv.weight() for cv in convs],
+                    [cv.bias for cv in convs], gen.conv_post.weight(), gen.conv_post.bias,
+                    kernel_sizes=cfg.resblock_kernel_sizes,
+                    dilations=cfg.resblock_dilation_sizes)
+                return audio[:, : mel.shape[1] * cfg.total_upsample]
+            x = _upsample(x, up, u, k)
+            acc = None
+            for block in blocks:
+                h = _plain_resblock1(x, block)
+                acc = h if acc is None else acc + h
+            x = acc / n_blocks
     x = F.leaky_relu(x, 0.01)
     audio = torch.tanh(_conv(x, gen.conv_post, None, padding=3))[..., 0]
     return audio[:, : mel.shape[1] * cfg.total_upsample]

@@ -21,6 +21,7 @@ from ttscube_tpu_torch.ops.conv import Conv1d
 from ttscube_tpu_torch.ops.length_regulator import durations_to_frame2phone, regulate_length
 from ttscube_tpu_torch.ops.linear import Dense
 from ttscube_tpu_torch.ops.rnn import LSTM
+from ttscube_tpu_torch.utils.profiling import span
 
 PHON_EMB_SIZE = 64
 SPEAKER_EMB_SIZE = 128
@@ -147,6 +148,7 @@ class Languasito2(nn.Module):
         hf = torch.cat([hf, (pitch / self.config.max_pitch)[:, :, None]], dim=-1)
         return self.cond_output(self.cond_rnn(hf)[0])
 
+    @span("tts.text")
     def forward(self, X):
         """Teacher-forced pass (training): the batch's own frame→phone map and pitch.
         Returns (dur_logits, pitch, vuv, cond)."""
@@ -161,20 +163,26 @@ class Languasito2(nn.Module):
         """Predicted per-phone durations (B, N), zero on padded phones."""
         return self._durations(X, self._tower(self.tower_t, X))
 
+    @span("tts.text")
     def infer(self, X, max_frames: int):
         """Free synthesis: predict durations, expand, predict pitch (VUV rounded to 0/1,
-        pitch scaled by max_pitch and masked by VUV), build the conditioning."""
-        h_t = self._tower(self.tower_t, X)
-        durs = self._durations(X, h_t)
-        frame2phone, frame_mask = durations_to_frame2phone(
-            durs, (X["x_char"] != 0).sum(dim=-1), max_frames)
+        pitch scaled by max_pitch and masked by VUV), build the conditioning. The spans
+        `tts.text.tower_t`, `.durations`, `.pitch` and `.cond` name the parts."""
+        with span("tts.text.tower_t"):
+            h_t = self._tower(self.tower_t, X)
+        with span("tts.text.durations"):
+            durs = self._durations(X, h_t)
+            frame2phone, frame_mask = durations_to_frame2phone(
+                durs, (X["x_char"] != 0).sum(dim=-1), max_frames)
 
-        po = self.pitch_output(self.pitch_rnn(regulate_length(h_t, frame2phone))[0])
-        pitch = torch.sigmoid(po[:, :, 0])
-        vuv = torch.round(torch.sigmoid(po[:, :, 1]))
-        pitch = pitch * self.config.max_pitch * vuv
+        with span("tts.text.pitch"):
+            po = self.pitch_output(self.pitch_rnn(regulate_length(h_t, frame2phone))[0])
+            pitch = torch.sigmoid(po[:, :, 0])
+            vuv = torch.round(torch.sigmoid(po[:, :, 1]))
+            pitch = pitch * self.config.max_pitch * vuv
 
-        cond = self.cond_forward(X, frame2phone, pitch)
+        with span("tts.text.cond"):
+            cond = self.cond_forward(X, frame2phone, pitch)
         return cond, {"durations": durs, "pitch": pitch, "vuv": vuv,
                       "frame2phone": frame2phone, "frame_mask": frame_mask}
 

@@ -7,7 +7,9 @@ of `csrc/` it includes with `#include "…"` (such as the shared `mma_sm90.cuh`)
 compiler flags, so a source whose text or headers changed is rebuilt and an unchanged
 one is not. The build
 runs at first use, and `nvcc`'s output (ptxas register and spill counts) is kept in
-`nvcc.log` beside the library. Nothing here runs when the module is imported.
+`nvcc.log` beside the library. A build is the span `tts.build.<name>` and adds to the
+counters `kernels.built` and `kernels.build_s` (`utils/profiling`). Nothing here runs
+when the module is imported.
 """
 
 from __future__ import annotations
@@ -20,7 +22,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
+
+from ttscube_tpu_torch.utils.profiling import count, span
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
@@ -99,7 +104,11 @@ def load_all(names) -> list:
     with _lock:
         missing = [n for n in names if n not in _libs and not _target(n).exists()]
         if missing:
-            _build(missing)
+            t0 = time.perf_counter()
+            with span("tts.build." + "+".join(missing)):
+                _build(missing)
+            count("kernels.built", len(missing))
+            count("kernels.build_s", time.perf_counter() - t0)
         for n in names:
             if n not in _libs:
                 _libs[n] = ctypes.CDLL(str(_target(n)))

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ttscube_tpu_torch.ops import _build
+from ttscube_tpu_torch.utils.profiling import count
 
 KERNEL_SOURCE = "fused_mrf_stage"
 # the kernel's limits (csrc/fused_mrf_stage.cu; checked against the library when it is
@@ -169,8 +170,8 @@ def fused_mrf1(x, w: MrfWeights):
 
     CPU tensors take `fused_mrf_plain`; CUDA tensors launch the kernel on x's device
     (set around the launch; untested on a machine with more than one card) or raise.
-    `fused_mrf1.launches` counts kernel launches, `fused_mrf1.last_grid` holds the
-    thread blocks of the last one."""
+    Each launch counts `launches.fused_mrf1` (`utils/profiling.count`);
+    `fused_mrf1.last_grid` holds the thread blocks of the last one."""
     if x.device.type == "cpu":
         return fused_mrf_plain(x, w)
     if x.device.type != "cuda":
@@ -198,12 +199,11 @@ def fused_mrf1(x, w: MrfWeights):
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_mrf1: kernel launch failed with CUDA error {err}")
-    fused_mrf1.launches += 1
+    count("launches.fused_mrf1")
     fused_mrf1.last_grid = grid.value
     return out
 
 
-fused_mrf1.launches = 0
 fused_mrf1.last_grid = 0
 
 

@@ -31,6 +31,7 @@ from ttscube_tpu_torch.ops import _build
 from ttscube_tpu_torch.ops.fused_mrf import (KERNEL_SOURCE, LIMITS as MRF_LIMITS,
                                              chain_spec, check_chains, mrf_chains_plain,
                                              mrf_flops, pack_convs)
+from ttscube_tpu_torch.utils.profiling import count
 
 # B3's limits with one chain (checked against the library when it is loaded)
 LIMITS = dict(MRF_LIMITS, max_blocks=1)
@@ -72,8 +73,9 @@ def fused_resblock1(x, kernels, biases, *, kernel_size: int, dilations,
     """The ResBlock1's output (B, T, C) fp32 from x (B, T, C) fp32.
 
     CPU tensors take `fused_resblock1_plain`; CUDA tensors launch the kernel on x's
-    device or raise. `fused_resblock1.launches` counts kernel launches,
-    `fused_resblock1.last_grid` holds the thread blocks of the last one."""
+    device or raise. Each launch counts `launches.fused_resblock1`
+    (`utils/profiling.count`); `fused_resblock1.last_grid` holds the thread blocks of the
+    last one."""
     if x.device.type == "cpu":
         return fused_resblock1_plain(x, kernels, biases, kernel_size=kernel_size,
                                      dilations=dilations, compute_dtype=compute_dtype)
@@ -100,12 +102,11 @@ def fused_resblock1(x, kernels, biases, *, kernel_size: int, dilations,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_resblock1: kernel launch failed with CUDA error {err}")
-    fused_resblock1.launches += 1
+    count("launches.fused_resblock1")
     fused_resblock1.last_grid = grid.value
     return out
 
 
-fused_resblock1.launches = 0
 fused_resblock1.last_grid = 0
 
 

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ttscube_tpu_torch.ops import _build, fused_mrf
 from ttscube_tpu_torch.ops.fused_mrf import (chain_spec, check_chains, mrf_chains_plain,
                                              pack_convs, rounder)
+from ttscube_tpu_torch.utils.profiling import count
 
 KERNEL_SOURCE = "fused_tail_stage"
 # the with_post=True form's tiling limits (csrc/fused_tail_stage.cu; checked against
@@ -168,7 +169,7 @@ def fused_tail_stage(z, w: TailWeights):
 
     CPU tensors take `fused_tail_stage_plain`; CUDA tensors launch the kernel on z's
     device (set around the launch; untested on a machine with more than one card) or
-    raise. `fused_tail_stage.launches` counts kernel launches."""
+    raise. Each launch counts `launches.fused_tail_stage` (`utils/profiling.count`)."""
     if not w.with_post:
         raise ValueError("fused_tail_stage: these weights have no conv_post; the stage "
                          "without it runs through fused_tail_stage_mid")
@@ -190,11 +191,10 @@ def fused_tail_stage(z, w: TailWeights):
             out.data_ptr(), torch.cuda.current_stream(z.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_tail_stage: kernel launch failed with CUDA error {err}")
-    fused_tail_stage.launches += 1
+    count("launches.fused_tail_stage")
     return out
 
 
-fused_tail_stage.launches = 0
 
 
 def _lib_mid():
@@ -209,7 +209,7 @@ def fused_tail_stage_mid(z, w: TailWeights):
 
     CPU tensors take `fused_tail_stage_plain`; CUDA tensors launch kernel B1-mid on z's
     device (set around the launch; untested on a machine with more than one card) or
-    raise. `fused_tail_stage_mid.launches` counts kernel launches,
+    raise. Each launch counts `launches.fused_tail_stage_mid` (`utils/profiling.count`);
     `fused_tail_stage_mid.last_grid` holds the thread blocks of the last one."""
     if w.with_post:
         raise ValueError("fused_tail_stage_mid: these weights have conv_post; the last "
@@ -235,12 +235,11 @@ def fused_tail_stage_mid(z, w: TailWeights):
             ctypes.addressof(grid), torch.cuda.current_stream(z.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_tail_stage_mid: kernel launch failed with CUDA error {err}")
-    fused_tail_stage_mid.launches += 1
+    count("launches.fused_tail_stage_mid")
     fused_tail_stage_mid.last_grid = grid.value
     return out
 
 
-fused_tail_stage_mid.launches = 0
 fused_tail_stage_mid.last_grid = 0
 
 
@@ -333,7 +332,7 @@ def fused_tail_stage_grad(z, w: TailWeights, dy, phase_clocks=None):
     overlap-add of the tiles' halo rows into dz are torch ops in a fixed order.
     `phase_clocks`, an int64 tensor of `GRAD_LIMITS["n_phases"]` on z's device, if given
     has the clocks that thread block 0 spent in each of `GRAD_PHASES` added to it.
-    `fused_tail_stage_grad.launches` counts kernel launches."""
+    Each launch counts `launches.fused_tail_stage_grad` (`utils/profiling.count`)."""
     if z.device.type != "cuda":
         raise ValueError(f"fused_tail_stage_grad: the kernel runs on CUDA tensors, got {z.device}")
     if w.compute_dtype is not None or not w.with_post:
@@ -390,7 +389,7 @@ def fused_tail_stage_grad(z, w: TailWeights, dy, phase_clocks=None):
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_tail_stage_grad: kernel launch failed with CUDA error {err}")
-    fused_tail_stage_grad.launches += 1
+    count("launches.fused_tail_stage_grad")
     grads = [g.view_as(t) for g, t in
              zip(partials.sum(0)[: sum(sizes)].split(sizes), tensors)]
     # tile i holds the cotangent of z rows [core·i − lo, core·i + core + lo): its core
@@ -402,7 +401,6 @@ def fused_tail_stage_grad(z, w: TailWeights, dy, phase_clocks=None):
     return (dz, *grads)
 
 
-fused_tail_stage_grad.launches = 0
 
 
 class FusedTailStageGrad(torch.autograd.Function):

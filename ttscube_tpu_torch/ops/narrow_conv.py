@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ttscube_tpu_torch.ops import _build
+from ttscube_tpu_torch.utils.profiling import count
 
 KERNEL_SOURCE = "narrow_conv"
 # the kernel's limits and tiling constants (csrc/narrow_conv.cu; checked against the
@@ -101,8 +102,9 @@ def narrow_conv_blocked(x, w):
     """The conv's output (B, T, C) fp32.
 
     CPU tensors take `narrow_conv_plain`; CUDA tensors launch the kernel on x's device
-    or raise. `narrow_conv_blocked.launches` counts kernel launches,
-    `narrow_conv_blocked.last_grid` holds the thread blocks of the last one."""
+    or raise. Each launch counts `launches.narrow_conv_blocked`
+    (`utils/profiling.count`); `narrow_conv_blocked.last_grid` holds the thread blocks of
+    the last one."""
     _check(x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return narrow_conv_plain(x, w)
@@ -125,12 +127,11 @@ def narrow_conv_blocked(x, w):
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"narrow_conv: kernel launch failed with CUDA error {err}")
-    narrow_conv_blocked.launches += 1
+    count("launches.narrow_conv_blocked")
     narrow_conv_blocked.last_grid = grid.value
     return out
 
 
-narrow_conv_blocked.launches = 0
 narrow_conv_blocked.last_grid = 0
 
 

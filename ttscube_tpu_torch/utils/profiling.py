@@ -1,9 +1,17 @@
-"""Tracing and timing, counterpart of `ttscube_tpu/utils/profiling.py`.
+"""Tracing, counting and timing, counterpart of `ttscube_tpu/utils/profiling.py`.
 
+* `span(name, unit=None)`: the program's spans. While a `torch.profiler` records, a
+  `record_function` range named `name` (`name#unit` with a unit's identifier); otherwise
+  the name's one shared null context, which costs a probe of the profiler and a dict
+  lookup. The profiler being on is the only switch. The ranges carry the profiler's
+  timestamps, the clock of the CUDA activity in the same trace, so each device operation
+  and each idle gap of the card falls inside the spans open on the host at that moment.
+  Also a decorator: the span opens at each call. Names are `tts.<layer>[.<part>]`.
+* `count(name, n=1)` and `counters()`: one registry of counts for the process, always on
+  (work done, kernel launches, builds), and `new_shape(layer, shape)`, which counts
+  `shapes.new.<layer>` the first time a layer meets an input shape.
 * `trace(log_dir, device=None)`: `torch.profiler` around a block, with CUDA activity on
   the card; writes a Chrome trace (`trace.json`) into `log_dir` and yields `log_dir`.
-* `PhaseTimer`: named wall-clock phases with a report; `block_on` synchronizes the
-  device of the tensors it is given, so that a phase holds the work it launched.
 * `device_timer`: one first call (its wall seconds are returned as the "compile" time:
   CUDA's lazy module loading, cuDNN's plan choice, the kernels' build), then `reps`
   calls timed between two CUDA events, in seconds per call. The clock follows where the
@@ -16,13 +24,100 @@ has no counterpart here: a CUDA event pair holds no host round trip.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
+import threading
 import time
-from collections import defaultdict
 
 import torch
+from torch.profiler import record_function
 
 from ttscube_tpu_torch import resolve_device
+
+# whether a profiler records: a C probe of ~0.1 µs, where entering and leaving a
+# `record_function` costs ~15 µs on the CPU even with no profiler on
+_recording = torch._C._autograd._profiler_enabled
+
+
+def _around(name: str, fn):
+    @functools.wraps(fn)
+    def spanned(*args, **kwargs):
+        with span(name):
+            return fn(*args, **kwargs)
+
+    return spanned
+
+
+class _Off:
+    """A span while no profiler records: it does nothing."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+    def __call__(self, fn):
+        return _around(self.name, fn)
+
+
+class _On(record_function):
+    """A span while a profiler records: a `record_function` range."""
+
+    def __call__(self, fn):
+        return _around(self.name, fn)
+
+
+_off: dict = {}
+
+
+def span(name: str, unit=None):
+    """The program span `name` over a `with` block (or, as a decorator, over each call):
+    a profiler range named `name`, or `name#unit` where `unit` identifies the unit of
+    work (a batch, a step, a request), while a profiler records; else the name's shared
+    null context."""
+    if _recording():
+        return _On(name if unit is None else f"{name}#{unit}")
+    try:
+        return _off[name]
+    except KeyError:
+        return _off.setdefault(name, _Off(name))
+
+
+_counts: dict = {}
+_shapes: set = set()
+_lock = threading.Lock()
+
+
+def count(name: str, n=1):
+    """Add `n` to the counter `name`; returns its new total."""
+    with _lock:
+        total = _counts[name] = _counts.get(name, 0) + n
+    return total
+
+
+def counters() -> dict:
+    """A snapshot of every counter of the process."""
+    with _lock:
+        return dict(_counts)
+
+
+def new_shape(layer: str, shape) -> bool:
+    """Whether `layer` meets `shape` for the first time in this process; the first time
+    it counts `shapes.new.<layer>`. A server reads it to see a request meet a shape that
+    its warm-up never ran (a cuDNN plan, a kernel module to load)."""
+    key = (layer, tuple(int(d) for d in shape))
+    with _lock:
+        if key in _shapes:
+            return False
+        _shapes.add(key)
+    count(f"shapes.new.{layer}")
+    return True
 
 
 @contextlib.contextmanager
@@ -58,28 +153,6 @@ def _synchronize(value) -> None:
     """Wait for the device of every CUDA tensor in `value`."""
     for dev in set(_cuda_devices(value)):
         torch.cuda.synchronize(dev)
-
-
-class PhaseTimer:
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str, block_on=None):
-        t0 = time.perf_counter()
-        yield
-        if block_on is not None:
-            _synchronize(block_on)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=lambda n: -self.totals[n]):
-            lines.append(f"{name}: {self.totals[name]*1e3:.1f} ms "
-                         f"({self.counts[name]} calls)")
-        return "\n".join(lines)
 
 
 def device_timer(fn, *args, reps: int = 10, return_compile_time: bool = False):
