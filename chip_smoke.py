@@ -6,8 +6,8 @@
 Phases, each printing one line with its seconds as it ends:
   device      the card (nvidia-smi name and power limit) and the CUDA version
   build       the kernel sources ttscube_tpu_torch/csrc/{fused_tail_stage,
-              fused_tail_stage_grad,fused_mrf_stage,narrow_conv}.cu, by plain nvcc, in
-              parallel, with each one's ptxas register and spill line
+              fused_tail_stage_grad,fused_mrf_stage,narrow_conv,stage_conv}.cu, by plain
+              nvcc, in parallel, with each one's ptxas register and spill line
   kernel      B1 (the fused tail stage) against its plain PyTorch version at serving
               shapes, fp32 (TF32 off) and bf16 (limits below), in fp32 at the training
               shape (B = 16, T_in = 3,000), and at serve_batch's shapes (B = 128, 512
@@ -25,13 +25,21 @@ Phases, each printing one line with its seconds as it ends:
   kernel_narrow_conv  B5 (a bias-free narrow conv) against its plain version, fp32
               (TF32 off, with a TF32 control) and bf16 operands, with a witness on the
               CPU; two launches bit-equal
+  kernel_stage_conv  S1 (one conv of an unfused serving stage, bf16 storage and
+              operands) against its plain version at v1's stage widths (C 256, 128, 64),
+              at B = 2 and a T that is no multiple of its 512-row tile, and at the main
+              path's shapes, B = 128 with each stage's T (2,560, 7,680, 30,720), where
+              each persistent block walks many items; in its last-conv epilogue
+              (residual, the blocks' sum and mean): within 2 bf16 ulps, at most 1 % of
+              elements differing, the fp32 control differing in more; two launches
+              bit-equal
   warmup      TTSCube at the full Cubegan v1 width from seeded random weights runs
               TTSCube.warmup (B1 once per frame bucket and text length); the first
               request after it, beside the same request in the steady state, at most
               FIRST_REQUEST_BOUND times its median; a fresh TTSCube's first request after
               its warmup and a steady one under the profiler, host ops by self time
   serve       that TTSCube answers three requests; the B1 launch counter must rise by one
-              per request; one more request in fp32 (TF32 off) must match the same model
+              per request, S1's by 54 (stages 0-2, 18 convs each); one more request in fp32 (TF32 off) must match the same model
               run on the CPU
   serve_wide  the same with every generator stage fused (fuse_channels 256, 128, 64, 32):
               per request B3 launches twice, B1-mid and B1 once; an fp32 request (TF32
@@ -40,7 +48,7 @@ Phases, each printing one line with its seconds as it ends:
               CPU's stage
   serve_batch bench.py's serving configuration through Cubegan.infer: 128 items of 64
               characters at 512 frames (B1 once per call), then 256 items in windows of
-              256 frames (B1 once per window): ms per batch, audio seconds per wall
+              256 frames (B1 once per window, S1 54 times): ms per batch, audio seconds per wall
               second, the busy share; chunked against whole synthesis at 4 items, fp32
               within 5e-5, bf16 by the floor rule, with the fused tail and with every
               stage fused (B3 and B1-mid then meet the window edges)
@@ -139,9 +147,11 @@ Phases, each printing one line with its seconds as it ends:
   generator_resblock2  a plain Generator at v1's widths with ResBlock2 (HiFi-GAN v3's
               kernels and dilations), fp32 on the card against the CPU
   times       each kernel's median time beside its plain version's and its bound (and
-              for B5 F.conv1d's): B1 in both forms at the serving shape and at the
-              training shape, and bf16 at serve_batch's shapes; and the train step's
-              median
+              for B5 and S1 F.conv1d's): B1 in both forms at the serving shape and at the
+              training shape, and bf16 at serve_batch's shapes; S1 over each of stages
+              0-2 (18 launches) at B = 128, 512 frames and at long-form's window, B = 64,
+              320 frames, its output held to the plain stage's (within S1_CHAIN of the
+              stage's bf16-against-fp32 floor, max and RMS); and the train step's median
   profile     one served request, one with every stage fused and one train step under
               torch.profiler: device-busy share, top kernels
 
@@ -211,6 +221,15 @@ TRAINER_STEPS = 4
 # warm call and BATCH_CALLS timed ones; then CHUNK_BATCH items in windows of CHUNK_FRAMES
 # frames (plus a halo of 32 on each side); the chunked-vs-whole checks at CHECK_BATCH
 BATCH, BATCH_CHARS, BATCH_FRAMES, BATCH_CALLS = 128, 64, 512, 4
+# S1's launches per serving generator call at v1's widths with fuse_channels (32,): stages
+# 0-2, each 3 ResBlock1s of 3 dilations, 2 convs each
+S1_PER_CALL = 3 * 3 * 3 * 2
+# S1 over a stage's MRF, a chain of 18 convs that each round to bf16 where the plain
+# stage does but sum in another order: its output within this many times the floor (the
+# plain stage at bf16 against it at fp32 storage) of the plain stage's, in max and RMS,
+# as for the whole generator in tests/test_torch_gpu.py
+S1_CHAIN = 1.25
+LONG_BATCH = 64  # long-form synthesis's window batch (benchmark v1-synth-long)
 CHUNK_BATCH, CHUNK_FRAMES, CHECK_BATCH = 256, 256, 4
 # import_export: the demo corpus of 2 speakers, cut from make_demo_corpus's default 300
 # sentences each to fit the run's time limit
@@ -475,7 +494,8 @@ def rel_rms(a, b) -> float:
 
 
 KERNEL_WRAPPERS = ("fused_tail_stage", "fused_tail_stage_grad", "fused_mrf1",
-                   "fused_tail_stage_mid", "fused_resblock1", "narrow_conv_blocked")
+                   "fused_tail_stage_mid", "fused_resblock1", "narrow_conv_blocked",
+                   "stage_conv")
 _counted_from: dict = {}
 
 
@@ -555,6 +575,52 @@ def check_stage_kernel(what: str, kernel, plain, x, w32, w16, tol: float = TOL_M
     bf16_check(f"{what} bf16", distance(want16, want32), e16, distance(got32, want16),
                distance(plain(xc, w16c), want16))
     return err, e16[0]
+
+
+def check_stage_conv(case: str, C: int, k: int, d: int, batch: int, t_len: int,
+                     dev) -> float:
+    """S1 against its plain version (cuDNN, TF32 off) on seeded x, residual and sum of
+    (batch, t_len, C), in its fullest epilogue (residual, the blocks' sum and their mean),
+    bf16 operands: within 2 bf16 ulps of each element's scale (the largest of the result,
+    the conv's own output, the residual, the sum and the conv output's RMS), at most 1 %
+    of the elements differing; the fp32 control (the plain version without the roundings
+    after the conv) differs in more; two launches bit-equal. Returns the largest distance
+    in ulps."""
+    import torch
+
+    from ttscube_tpu_torch.models.hifigan import LRELU_SLOPE
+    from ttscube_tpu_torch.ops import stage_conv as sc
+
+    g = torch.Generator().manual_seed(C + 10 * k + d + batch)
+    n = lambda scale, *s: (scale * torch.randn(*s, generator=g)).to(dev)
+    x, res, acc = (n(1.0, batch, t_len, C).bfloat16() for _ in range(3))
+    w, b = n((C * k) ** -0.5, C, C, k), n(0.1, C)
+    kw = dict(dilation=d, slope=LRELU_SLOPE, residual=res, accum=acc, n_mean=3)
+    with no_tf32():
+        conv = sc.stage_conv_plain(x, w, b, dilation=d, slope=LRELU_SLOPE).float().abs()
+        want = sc.stage_conv_plain(x, w, b, **kw)
+        ctl = sc.stage_conv_plain(x.float(), w, b, **dict(kw, residual=res.float(),
+                                                            accum=acc.float()))
+    scale = (want.float().abs() * 3).maximum(conv).maximum(res.float().abs())
+    scale = scale.maximum(acc.float().abs()).maximum(conv.square().mean().sqrt())
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    del conv, scale
+
+    def reading(y):
+        diff = (y.float() - want.float()).abs()
+        return (diff / ulp).max().item(), (diff > 0).float().mean().item()
+
+    cw = sc.pack_conv(w, b)
+    got, again = sc.stage_conv(x, cw, **kw), sc.stage_conv(x, cw, **kw)
+    torch.cuda.synchronize()
+    most, share = reading(got)
+    c_most, c_share = reading(ctl)
+    print(f"  {case}: max {most:.2f} ulps, {share:.4%} of elements differ; control "
+          f"{c_most:.2f} ulps, {c_share:.2%}", flush=True)
+    check(torch.equal(got, again), f"{case}: two launches differ")
+    check(most <= 2 and share <= 0.01, f"{case}: {most:.2f} ulps, {share:.4%} differ")
+    check(c_share > 0.01, f"{case}: the fp32 control passed")
+    return most
 
 
 @contextlib.contextmanager
@@ -2261,7 +2327,8 @@ def inventory_phase(work: Path, gen, w16) -> dict:
     audio_s = len(told["audio"]) / 24000
     check(story_counts == dict(fused_tail_stage=len(REQUESTS), fused_mrf1=0,
                                fused_tail_stage_mid=0, fused_tail_stage_grad=0,
-                               fused_resblock1=0, narrow_conv_blocked=0),
+                               fused_resblock1=0, narrow_conv_blocked=0,
+                               stage_conv=S1_PER_CALL * len(REQUESTS)),
           f"inventory: a story of {len(REQUESTS)} paragraphs launched {story_counts}")
     check([m["name"] for m in told["meta"]].count("paragraph") == len(REQUESTS)
           and told["audio"].dtype == np.int16, "inventory: the story's paragraphs")
@@ -2456,11 +2523,11 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # -- build --------------------------------------------------------------------
-    from ttscube_tpu_torch.ops import _build, fused_mrf, fused_tail, narrow_conv
+    from ttscube_tpu_torch.ops import _build, fused_mrf, fused_tail, narrow_conv, stage_conv
 
     t0 = time.perf_counter()
     sources = (fused_tail.KERNEL_SOURCE, fused_tail.GRAD_KERNEL_SOURCE, fused_mrf.KERNEL_SOURCE,
-               narrow_conv.KERNEL_SOURCE)
+               narrow_conv.KERNEL_SOURCE, stage_conv.KERNEL_SOURCE)
     _build.load_all(sources)
     for source in sources:
         for line in _build.nvcc_log(source).splitlines():
@@ -2717,8 +2784,23 @@ def main() -> int:
         f"{k[5:]} {v}" for k, v in grids.items() if k.startswith("conv ")), flush=True)
     say("kernel_narrow_conv", t0, checks=len(conv_errs),
         launches=launches("narrow_conv_blocked"))
-    phase_launches = {"fused_resblock1": launches("fused_resblock1"),
-                      "narrow_conv_blocked": launches("narrow_conv_blocked")}
+
+    # -- kernel_stage_conv --------------------------------------------------------------
+    t0 = time.perf_counter()
+    s1_errs = {}
+    for C in (256, 128, 64):
+        for k, d in ((3, 1), (11, 5)):
+            case = f"stage_conv C={C} k={k} d={d} B=2 T=1000"
+            s1_errs[case] = check_stage_conv(case, C, k, d, 2, 1000, dev)
+    # the main path's shapes (B = 128, 512 frames): stage i's width and length
+    for i, (k, d) in enumerate(((11, 5), (7, 3), (3, 1))):
+        C, t_len = 256 >> i, BATCH_FRAMES * (5, 15, 60)[i]
+        case = f"stage_conv C={C} k={k} d={d} B={BATCH} T={t_len}"
+        s1_errs[case] = check_stage_conv(case, C, k, d, BATCH, t_len, dev)
+        torch.cuda.empty_cache()
+    say("kernel_stage_conv", t0, checks=len(s1_errs), launches=launches("stage_conv"))
+    phase_launches = {n: launches(n)
+                      for n in ("fused_resblock1", "narrow_conv_blocked", "stage_conv")}
 
     # -- warmup -------------------------------------------------------------------
     from ttscube_tpu_torch.api import TTSCube, config_from_yaml, phonemizer_config
@@ -2743,7 +2825,8 @@ def main() -> int:
     warm_counts = read_counts()
     check(warm_counts == dict(fused_tail_stage=4, fused_mrf1=0, fused_tail_stage_mid=0,
                               fused_tail_stage_grad=0, fused_resblock1=0,
-                              narrow_conv_blocked=0), f"warmup launches {warm_counts}")
+                              narrow_conv_blocked=0, stage_conv=4 * S1_PER_CALL),
+          f"warmup launches {warm_counts}")
     # the first request after warmup (its bucket, 256 frames, was warmed), then the same
     # request three more times
     lat = []
@@ -2799,7 +2882,8 @@ def main() -> int:
     main_launches = serve_counts["fused_tail_stage"]
     check(serve_counts == dict(fused_tail_stage=len(REQUESTS), fused_mrf1=0,
                                fused_tail_stage_mid=0, fused_tail_stage_grad=0,
-                               fused_resblock1=0, narrow_conv_blocked=0),
+                               fused_resblock1=0, narrow_conv_blocked=0,
+                               stage_conv=S1_PER_CALL * len(REQUESTS)),
           f"launches for {len(REQUESTS)} requests: {serve_counts}")
     check(len(set(served)) == len(served), "the requests were meant to differ in length")
 
@@ -2825,7 +2909,8 @@ def main() -> int:
     torch.cuda.synchronize()
     zero_counts()
     per_request = dict(fused_tail_stage=1, fused_tail_stage_grad=0, fused_mrf1=2,
-                       fused_tail_stage_mid=1, fused_resblock1=0, narrow_conv_blocked=0)
+                       fused_tail_stage_mid=1, fused_resblock1=0, narrow_conv_blocked=0,
+                       stage_conv=0)
     for text, frames in zip(REQUESTS, served):
         before = read_counts()
         t1 = time.perf_counter()
@@ -2909,7 +2994,7 @@ def main() -> int:
         windows = 1 if chunk is None else -(-BATCH_FRAMES // chunk)
         want = dict(fused_tail_stage=(1 + BATCH_CALLS) * windows, fused_mrf1=0,
                     fused_tail_stage_mid=0, fused_tail_stage_grad=0, fused_resblock1=0,
-                    narrow_conv_blocked=0)
+                    narrow_conv_blocked=0, stage_conv=S1_PER_CALL * (1 + BATCH_CALLS) * windows)
         check(run["counts"] == want, f"serve_batch {label} launches {run['counts']}, want {want}")
         X = batch_inputs(n_items, SEED + 30, dev)
         wall, busy, by_name, n_ev = device_profile(
@@ -2979,7 +3064,8 @@ def main() -> int:
     train_launches = (train_counts["fused_tail_stage"], train_counts["fused_tail_stage_grad"])
     check(train_counts == dict(fused_tail_stage=TRAIN_STEPS, fused_tail_stage_grad=TRAIN_STEPS,
                                fused_mrf1=0, fused_tail_stage_mid=0, fused_resblock1=0,
-                               narrow_conv_blocked=0), f"train: launches {train_counts}")
+                               narrow_conv_blocked=0, stage_conv=0),
+          f"train: launches {train_counts}")
     for top in tops:
         check(not torch.equal(firsts[top].detach(), before[top]), f"train: {top} did not move")
     say("train", t0, steps=TRAIN_STEPS, launches_b1=train_launches[0],
@@ -3569,6 +3655,86 @@ def main() -> int:
               f"achieved={flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s = "
               f"{row['bound_ms'] / ms:.3f} of the bound", flush=True)
     del x32, w32c, xx, ww, x_nct, w_oik
+    # S1 over each unfused stage's MRF (its 18 launches) at the main path's shapes and
+    # precision (bf16 storage and operands), bulk synthesis (B = 128, 512 frames) and
+    # long-form's window (B = 64, 256 + 64 frames), against its plain version (the stock
+    # convs, the same arithmetic) and against F.conv1d alone on the same 18 convs (cuDNN
+    # on the bf16 values held in fp32, NCW, TF32 as served): its library yardstick, which
+    # the port does not call. Bound: the bf16 operations, or the bf16 bytes (each conv's
+    # input read and output written once, the residuals and the sums read once)
+    from ttscube_tpu_torch.models import hifigan_fused as thf
+    from ttscube_tpu_torch.models.hifigan import LRELU_SLOPE
+
+    hc = gen.config
+    s1_rows = {}
+    for batch, frames in ((BATCH, BATCH_FRAMES), (LONG_BATCH, CHUNK_FRAMES + 64)):
+        t_len = frames
+        for i in range(3):
+            C, t_len = hc.upsample_initial_channel >> (i + 1), t_len * hc.upsample_rates[i]
+            blocks = [getattr(gen, f"res_{i}_{j}") for j in range(len(hc.resblock_kernel_sizes))]
+            g = torch.Generator().manual_seed(t_len + C)
+            x = torch.randn(batch, t_len, C, generator=g).to(dev).bfloat16()
+            x_nct = x.float().transpose(1, 2).contiguous()
+            convs = gen.stage_conv_weights(i)
+            kernel = lambda: stage_conv.stage_mrf(x, convs, hc.resblock_dilation_sizes,
+                                                  LRELU_SLOPE)
+
+            def plain(x=x, operands=torch.bfloat16):
+                acc = None
+                for blk in blocks:
+                    h = thf._plain_resblock1(x, blk, operands, x.dtype)
+                    acc = h if acc is None else acc + h
+                return acc / len(blocks)
+
+            with torch.no_grad():
+                lib_convs = [(cv.weight().bfloat16().float(), cv.bias,
+                              blk.dilations[m // 2] if m % 2 == 0 else 1)
+                             for blk in blocks for m, cv in enumerate(blk.convs())]
+
+            def library():
+                for w, bias, dil in lib_convs:
+                    torch.nn.functional.conv1d(x_nct, w, bias, padding=dil * (w.shape[2] - 1) // 2,
+                                               dilation=dil)
+
+            with torch.no_grad():
+                p1, l1, k1, k2, l2, p2 = (cuda_times(f, 3, 2) for f in
+                                          (plain, library, kernel, kernel, library, plain))
+            ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+            library_ms = statistics.median(l1 + l2)
+            flops = sum(2 * stage_conv.stage_conv_flops(batch, t_len, C, kk) * len(ds)
+                        for kk, ds in zip(hc.resblock_kernel_sizes, hc.resblock_dilation_sizes))
+            n_blocks = len(blocks)
+            n_convs = 2 * sum(len(ds) for ds in hc.resblock_dilation_sizes)
+            # per conv its input and output; a residual per dilation; the sum in n - 1
+            nbytes = 2 * x.numel() * (2 * n_convs + n_convs // 2 + n_blocks - 1)
+            label = f"stage{i} B={batch} F={frames}"
+            # the output against the plain stage's, beside the floor: the plain stage at
+            # bf16 against it at fp32 storage and operands (TF32 off), in this run
+            with torch.no_grad(), no_tf32():
+                got, want16 = kernel(), plain()
+                floor = distance(want16, plain(x.float(), None))
+            err = distance(got, want16)
+            print(f"  stage_conv {label} MRF: max={err[0]:.3e} rms={err[1]:.3e}; floor "
+                  f"max={floor[0]:.3e} rms={floor[1]:.3e} ({err[0] / floor[0]:.3f}, "
+                  f"{err[1] / floor[1]:.3f} of it)", flush=True)
+            check(floor[0] > 1e-4, f"stage_conv {label}: bf16 did not move the stage")
+            check(bool(torch.isfinite(got).all()) and err[0] <= S1_CHAIN * floor[0]
+                  and err[1] <= S1_CHAIN * floor[1],
+                  f"stage_conv {label}: the MRF's output {err} is not within {S1_CHAIN} of "
+                  f"the floor {floor}")
+            del got, want16
+            row = s1_rows[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                        floor_share=max(err[0] / floor[0],
+                                                        err[1] / floor[1]),
+                                        **bound(flops, nbytes, "bf16"))
+            print(f"  stage_conv {label} T={t_len} C={C} ({n_convs} launches) ms={ms:.3f} "
+                  f"plain_ms={plain_ms:.3f} library_ms={library_ms:.3f} (F.conv1d x "
+                  f"{n_convs}) bound_ms={row['bound_ms']:.3f} ({row['bound_by']}; "
+                  f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.2f} GB) achieved="
+                  f"{flops / ms / 1e9:.1f} TFLOP/s = {row['bound_ms'] / ms:.3f} of the bound",
+                  flush=True)
+            del x, x_nct, lib_convs
+    torch.cuda.empty_cache()
     b1_serve_ms = b1_rows[("bf16", "B=1 F=256")]["ms"]
     ratio = inv_run["timer_ms"] / b1_serve_ms
     print(f"  device_timer of B1 bf16 B=1 F=256 (inventory phase) ms={inv_run['timer_ms']:.4f} "
@@ -3647,7 +3813,13 @@ def main() -> int:
         "launches": main_counts["narrow_conv_blocked"],
         "phase_launches": phase_launches["narrow_conv_blocked"],
         "max_abs_err": conv_errs[("docstring", mode)], **conv_rows[mode]}
-        for mode in ("fp32", "bf16")]]}), flush=True)
+        for mode in ("fp32", "bf16")], *[{
+        "name": f"stage_conv[{label}]", "route": "cuda",
+        "source": "ttscube_tpu_torch/csrc/stage_conv.cu", "replaces": None,
+        "launches": main_counts["stage_conv"],
+        "phase_launches": phase_launches["stage_conv"],
+        "max_ulps": max(s1_errs.values()), **row} for label, row in s1_rows.items()]]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -840,3 +840,113 @@ def test_import_on_the_card_matches_the_cpu(cuda, tmp_path):
             assert float(np.abs(np.load(a) - np.load(b)).max()) <= 1e-4, n
         else:
             assert a.read_bytes() == b.read_bytes(), n
+
+
+# -- S1: one conv of an unfused serving stage ------------------------------------------------
+
+S1_CASES = [(C, k, d) for C in (256, 128, 64) for k in (3, 7, 11) for d in (1, 3, 5)]
+
+
+def _ulps(got, want, scale):
+    """(max |got − want| in bf16 ulps of `scale`, the share of elements that differ)."""
+    ulp = torch.exp2(torch.floor(torch.log2(scale.float().clamp_min(2.0 ** -126))) - 7)
+    d = (got.float() - want.float()).abs()
+    return (d / ulp).max().item(), (d > 0).float().mean().item()
+
+
+def _check_s1(device, C, k, d, B, T):
+    """S1 against its plain version (cuDNN, TF32 off) on seeded x, residual and sum of
+    (B, T, C), in each epilogue: the first conv's (the leaky on its output), the
+    residual's (its input activated already), the residual and the blocks' sum and mean.
+    Within 2 bf16 ulps of the element's scale (the largest of the plain result, the
+    conv's own output, the residual, the sum and the conv output's RMS), and at most 1 %
+    of the elements differ (a sum that rounds the other way); the control, the plain
+    version with fp32 storage (no rounding after the conv), differs in more. Two launches
+    bit-equal; one launch counted per call."""
+    from ttscube_tpu_torch.models.hifigan import LRELU_SLOPE
+    from ttscube_tpu_torch.ops import stage_conv as sc
+
+    g = torch.Generator().manual_seed(C + 10 * k + d + B)
+    n = lambda scale, *s: (scale * torch.randn(*s, generator=g)).to(device)
+    x, res, acc = (n(1.0, B, T, C).bfloat16() for _ in range(3))
+    w, b = n((C * k) ** -0.5, C, C, k), n(0.1, C)
+    plain = lambda x, **kw: sc.stage_conv_plain(x, w, b, dilation=d, slope=LRELU_SLOPE, **kw)
+    conv = plain(x).float().abs()
+    floor = conv.square().mean().sqrt()
+    cw = sc.pack_conv(w, b)
+    for kw in (dict(leaky_out=True), dict(residual=res, leaky_in=False),
+               dict(residual=res, accum=acc, n_mean=3)):
+        want = plain(x, **kw)
+        ctl = plain(x.float(), **{key: v.float() if torch.is_tensor(v) else v
+                                  for key, v in kw.items()})
+        scale = torch.maximum(want.float().abs() * kw.get("n_mean", 1), conv).maximum(floor)
+        for t in (res, acc) if "residual" in kw else ():
+            scale = scale.maximum(t.float().abs())
+        before = launches(sc.stage_conv)
+        got = sc.stage_conv(x, cw, dilation=d, slope=LRELU_SLOPE, **kw)
+        again = sc.stage_conv(x, cw, dilation=d, slope=LRELU_SLOPE, **kw)
+        torch.cuda.synchronize()
+        assert launches(sc.stage_conv) == before + 2
+        assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+        most, share = _ulps(got, want, scale)
+        assert most <= 2 and share <= 0.01, (kw.keys(), most, share)
+        assert _ulps(ctl, want, scale)[1] > 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,k,d", S1_CASES)
+def test_stage_conv_kernel_matches_plain(cuda, C, k, d):
+    """S1 against its plain version (`_check_s1`) at each (C, k, d) of v1's stages 0-2,
+    B = 2, T = 700 (not a multiple of the 512-row tile)."""
+    _check_s1(cuda, C, k, d, 2, 700)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,k,d", [(256, 11, 5), (128, 7, 3), (64, 3, 1)])
+def test_stage_conv_kernel_walks_many_items(cuda, C, k, d):
+    """S1 against its plain version (`_check_s1`) where each persistent block walks
+    several (row tile, channel block) items: B = 96, T = 1,300 (two whole tiles and one
+    of 276 rows) gives 288 · C / 64 items, 2 to 9 for each of the card's blocks, so the
+    walk to the next item, its slab fetched ahead, the sums reset per item and the slab
+    buffers alternating across items all run."""
+    _check_s1(cuda, C, k, d, 96, 1300)
+
+
+@pytest.mark.gpu
+def test_serving_generator_runs_s1_on_the_unfused_stages(cuda, monkeypatch):
+    """generator_apply_fused at bf16 storage, B = 2, with S1 on stages 0-2 (18 launches a
+    stage) against the same path with stock convs there (S1's dispatch turned off). Each
+    of the 54 convs rounds to bf16 where the stock path does, but sums in another order,
+    and the chain turns those few flipped roundings into bf16 noise of its own: on the
+    card S1's audio lies 0.8-0.95 of the floor (the stock path at bf16 against it at fp32
+    storage) from the stock path's, and 0.86-1.06 of it from the fp32 audio. Both within
+    1.25 of the floor, in max and RMS (the per-conv test above holds the rounding points).
+    A training forward and backward (generator_apply_fused_train) launches no S1."""
+    from ttscube_tpu_torch.convert import init_random
+    from ttscube_tpu_torch.models import hifigan_fused
+    from ttscube_tpu_torch.models.hifigan import Generator, HifiganConfig
+    from ttscube_tpu_torch.ops import stage_conv
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    gen = init_random(Generator(HifiganConfig()), 0).to(cuda)
+    cfg = gen.config
+    mel = torch.from_numpy(
+        np.random.default_rng(5).standard_normal((2, 37, 80)).astype(np.float32)).to(cuda)
+    apply = lambda st: hifigan_fused.generator_apply_fused(gen, mel, cfg, storage_dtype=st)
+    with torch.no_grad():
+        before = launches(stage_conv.stage_conv)
+        got16 = apply(torch.bfloat16)
+        assert launches(stage_conv.stage_conv) == before + 54
+        with monkeypatch.context() as stock:
+            stock.setattr(hifigan_fused, "takes", lambda *a: False)
+            want16, want32 = apply(torch.bfloat16), apply(None)
+    assert launches(stage_conv.stage_conv) == before + 54
+    assert got16.shape == want16.shape == (2, 37 * 240)
+    floor = _distance(want16, want32)
+    assert floor[0] > 1e-4
+    for d in (_distance(got16, want16), _distance(got16, want32)):
+        assert d[0] <= 1.25 * floor[0] and d[1] <= 1.25 * floor[1], (d, floor)
+    before = launches(stage_conv.stage_conv)
+    hifigan_fused.generator_apply_fused_train(gen, mel, cfg).square().mean().backward()
+    torch.cuda.synchronize()
+    assert launches(stage_conv.stage_conv) == before

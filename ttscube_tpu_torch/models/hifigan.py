@@ -22,6 +22,7 @@ from torch.distributed.fsdp import FSDPModule
 from ttscube_tpu_torch.ops.conv import SNConv1d, WNConv1d, WNConv2d, WNConvTranspose1d
 from ttscube_tpu_torch.ops.fused_mrf import MrfWeights, pack_mrf_weights
 from ttscube_tpu_torch.ops.fused_tail import TailWeights, pack_tail_weights
+from ttscube_tpu_torch.ops.stage_conv import pack_conv
 from ttscube_tpu_torch.utils.profiling import count, span
 
 LRELU_SLOPE = 0.1
@@ -145,12 +146,35 @@ class Generator(nn.Module):
         (parallel/mesh.py) is packed at every call: FSDP2 gathers new values into its
         weights without changing their versions. Raises ValueError, naming the stage,
         where the stage is beyond its kernel's limits."""
-        params = list(self.parameters())
-        key = None if isinstance(self, FSDPModule) else (
-            compute_dtype, self.conv_post.v.device, tuple(p._version for p in params))
-        cached = self._stage_cache.get((i, compute_dtype))
-        if key is not None and cached is not None and cached[0] == key:
+        return self._cached((i, compute_dtype), lambda: self._pack_stage(i, compute_dtype))
+
+    def stage_conv_weights(self, i: int) -> list:
+        """Stage i's MRF convs packed for kernel S1 (`ops/stage_conv.pack_conv`, bf16
+        operands), a list per ResBlock1 in call order; cached as `stage_weights` packs
+        are."""
+
+        def pack():
+            with torch.no_grad():
+                return [[pack_conv(cv.weight(), cv.bias)
+                         for cv in getattr(self, f"res_{i}_{j}").convs()]
+                        for j in range(len(self.config.resblock_kernel_sizes))]
+
+        return self._cached(("stage_conv", i), pack)
+
+    def _cached(self, name, pack):
+        """`pack()`, kept under `name` until a parameter changes (in place or by a move to
+        another device); packed at every call for a sharded generator."""
+        if isinstance(self, FSDPModule):
+            return pack()
+        key = (self.conv_post.v.device, tuple(p._version for p in self.parameters()))
+        cached = self._stage_cache.get(name)
+        if cached is not None and cached[0] == key:
             return cached[1]
+        packed = pack()
+        self._stage_cache[name] = (key, packed)
+        return packed
+
+    def _pack_stage(self, i: int, compute_dtype):
         c = self.config
         last = i == len(c.upsample_rates) - 1
         whole = c.upsample_rates[i] == c.upsample_kernel_sizes[i]
@@ -176,8 +200,6 @@ class Generator(nn.Module):
             raise ValueError(f"generator stage {i} (C = {convs[0].v.shape[0]}, upsample "
                              f"{c.upsample_rates[i]}/{c.upsample_kernel_sizes[i]}) cannot be "
                              f"fused: {e}") from e
-        if key is not None:
-            self._stage_cache[(i, compute_dtype)] = (key, packed)
         return packed
 
     def tail_weights(self, compute_dtype=None) -> TailWeights:

@@ -10,7 +10,10 @@ stages whose width is in `fuse_channels` exactly where the JAX function does:
 - any other stage runs its upsample as a stock conv and its MRF as one kernel
   (`ops/fused_mrf.fused_mrf1`, kernel B3), where the JAX function's condition on the
   width and the length holds;
-- every other stage is stock PyTorch convs.
+- every other stage runs its upsample as a stock conv and, on CUDA tensors at bf16
+  storage and operands and the widths S1 takes, each ResBlock1 conv of its MRF as one
+  launch of kernel S1 (`ops/stage_conv.stage_mrf`); otherwise (CPU tensors, fp32
+  storage or operands, other widths) as stock PyTorch convs.
 On CUDA tensors the kernels run; on CPU tensors their plain PyTorch versions. A stage
 that the JAX function fuses and no kernel of the port takes raises; it never runs as
 stock convs. Between convs the activations are kept in `storage_dtype` (bf16 when
@@ -33,30 +36,14 @@ from ttscube_tpu_torch.ops.conv import conv1d, conv_transpose1d
 from ttscube_tpu_torch.ops.fused_mrf import fused_mrf1
 from ttscube_tpu_torch.ops.fused_tail import (fused_tail_stage, fused_tail_stage_mid,
                                               fused_tail_stage_train)
+from ttscube_tpu_torch.ops.stage_conv import stage_mrf, takes
+from ttscube_tpu_torch.ops.stage_conv import conv_operands as _cd, leaky as _leaky
 from ttscube_tpu_torch.utils.profiling import span
 
 
 def _st(x, storage_dtype):
     """Cast an activation for storage between convs."""
     return x if storage_dtype is None else x.to(storage_dtype)
-
-
-def _cd(x, w, compute_dtype):
-    """Operands of one conv rounded to the compute dtype and held in fp32, so that the
-    conv accumulates and returns fp32 and its result is rounded once, where it is
-    stored: the JAX function's bf16 operands with `preferred_element_type=fp32`. (A
-    bf16 `F.conv1d` would round its result to bf16 before the bias is added.) On the
-    card cuDNN runs these fp32 convs on TF32 tensor cores by default, which hold bf16
-    values exactly."""
-    if compute_dtype is None:
-        return x.float(), w
-    return x.to(compute_dtype).float(), w.to(compute_dtype).float()
-
-
-def _leaky(x, slope):
-    """`jax.nn.leaky_relu`: the slope takes the activation's dtype (0.1 is
-    0.10009765625 in bf16), and the product is rounded once to that dtype."""
-    return F.leaky_relu(x, float(torch.tensor(slope, dtype=x.dtype)))
 
 
 def _conv(x, conv, compute_dtype, dilation=1, padding=None):
@@ -91,6 +78,25 @@ def _plain_resblock1(x, block, compute_dtype=None, storage_dtype=None):
     return x
 
 
+def _serving_mrf(gen: Generator, i: int, x, cfg: HifiganConfig, compute_dtype,
+                 storage_dtype):
+    """Stage i's MRF, the mean of its ResBlock1s, where no fused kernel takes it. CUDA
+    tensors that kernel S1 takes (bf16 storage and operands at its widths,
+    `stage_conv.takes`) launch it once per conv (`ops/stage_conv.stage_mrf`) on weights
+    packed once per parameter version (`Generator.stage_conv_weights`); every other
+    input, CPU tensors, fp32 storage or operands and widths S1 does not tile, runs stock
+    convs (`_plain_resblock1`)."""
+    dils = cfg.resblock_dilation_sizes
+    if x.device.type == "cuda" and takes(x, compute_dtype, cfg.resblock_kernel_sizes, dils):
+        # the upsample's output is NCW in memory
+        return stage_mrf(x.contiguous(), gen.stage_conv_weights(i), dils, LRELU_SLOPE)
+    acc = None
+    for j in range(len(cfg.resblock_kernel_sizes)):
+        h = _plain_resblock1(x, getattr(gen, f"res_{i}_{j}"), compute_dtype, storage_dtype)
+        acc = h if acc is None else acc + h
+    return acc / len(cfg.resblock_kernel_sizes)
+
+
 def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
                           compute_dtype=None, fuse_channels: tuple = (32,),
                           storage_dtype=None, max_stages: int | None = None) -> torch.Tensor:
@@ -112,7 +118,6 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
         return x
     ch = cfg.upsample_initial_channel
     n_stages = len(cfg.upsample_rates)
-    n_blocks = len(cfg.resblock_kernel_sizes)
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
         ch //= 2
         with span(f"tts.gen.stage{i}"):
@@ -135,12 +140,7 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor, cfg: HifiganConfig,
                 x = _st(fused_mrf1(x.float().contiguous(),
                                    gen.stage_weights(i, compute_dtype)), storage_dtype)
             else:
-                acc = None
-                for j in range(n_blocks):
-                    h = _plain_resblock1(x, getattr(gen, f"res_{i}_{j}"), compute_dtype,
-                                         storage_dtype)
-                    acc = h if acc is None else acc + h
-                x = acc / n_blocks
+                x = _serving_mrf(gen, i, x, cfg, compute_dtype, storage_dtype)
             if max_stages == i + 1:
                 return x
     # final act/conv/tanh stay fp32, as in Generator
