@@ -13,7 +13,7 @@ from benchmark.reference import cubegan as ref
 from benchmark.reference.collate import collate
 from benchmark.reference.synthesis import judge
 from benchmark.reference.training import compare, follow
-from benchmark.tests.tiny import REPO, tiny_params
+from benchmark.tests.tiny import REPO, tiny_cell
 
 BENCH = Bench(REPO)
 C = BENCH.config("cubegan-v1")
@@ -87,8 +87,8 @@ def test_free_synthesis_in_fp32():
 def test_one_gan_step():
     from ttscube_tpu_torch.models.cubegan import batch_to_torch, create_train_state, train_step
 
-    cell = BENCH.cell("bert-train-b16")  # its traffic, read with cubegan-v1 (no LM)
-    tr = BENCH.traffic("gan_train").Traffic(tiny_params(cell), C, 24)
+    cell = tiny_cell("bert-train-b16")  # its traffic, read with cubegan-v1 (no LM)
+    tr = BENCH.traffic("gan_train").Traffic(cell["params"], C, 24)
     model, _, W = build(C, 24, "cpu", train=True)
     state = create_train_state(model, seed=24)
     arrays = collate(tr.batch(0), tr.phones(), tr.speakers(), C["collate"], 240, False)
